@@ -6,19 +6,24 @@
 Phases, each printing its own lines; any failure raises and exits non-zero:
   1. environment: versions, the card's name and power limit;
   2. build: every CUDA source under src/repro_torch/kernels/csrc with nvcc
-     for sm_90a, into build/;
+     for sm_90a, into build/ (flash_attention, wkv6_scan, ssd_scan);
   3. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes and the edge cases, with the tolerance stated, and
-     device times of kernel, plain version and PyTorch's own call;
-  4. serve: jag-surrogate at full width through ServeEngine (batch 4,
-     prompts of 32, 200 and 512 tokens, 32 new tokens each), with the
-     kernel's launch count read around exactly that run, and the first-token
-     logits held against a run of the plain versions.
+     main paths' shapes and the edge cases, with the tolerance stated, and
+     device times of kernel, plain version and PyTorch's own call (where
+     one call computes the same function) beside the card's bound;
+  4. serve: jag-surrogate, rwkv6-3b and zamba2-1.2b at full width and full
+     depth through ServeEngine (random weights from seed 0; batch 4,
+     prompts of 32, 200 and 512 tokens, 32 new tokens each).  Every launch
+     count is set to 0 just before each model's run and read just after;
+     the counts must be exact (jag 12 flash; rwkv6-3b 96 WKV; zamba2 99 SSD
+     and 15 flash), and the first-token logits are held against a run of
+     the plain versions.
 The last line is {"ok": true, "device": {...}}.  Without a card, or without
 the rest of the repository beside it, the script exits non-zero before it.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -34,6 +39,8 @@ from repro_torch import env  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fak  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssdk  # noqa: E402
+from repro_torch.kernels import wkv6_scan as wkvk  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 
@@ -53,9 +60,53 @@ SHAPES = [
     ("cross", 1, 33, 70, 4, 1, 64, F32, False, None, None, 0),
     ("window64_softcap30", 2, 300, 300, 4, 2, 32, F32, True, 64, 30.0, 0),
     ("q_pos0_16", 1, 48, 64, 4, 4, 64, F32, True, None, None, 16),
+    # zamba2-1.2b's shared attention: 32 heads of 64 over concat(x, x0)
+    ("zamba2_prefill_512", 4, 512, 512, 32, 32, 64, BF16, True, None, None, 0),
+    ("zamba2_prefill_200", 4, 200, 200, 32, 32, 64, BF16, True, None, None, 0),
+    ("zamba2_prefill_32", 4, 32, 32, 32, 32, 64, BF16, True, None, None, 0),
 ]
-MAIN_PATH = ("jag_prefill_512", "jag_prefill_200", "jag_prefill_32")
+MAIN_PATH = ("jag_prefill_512", "jag_prefill_200", "jag_prefill_32",
+             "zamba2_prefill_512", "zamba2_prefill_200", "zamba2_prefill_32")
 PROMPT_LENS, BATCH, NEW_TOKENS = (32, 200, 512), 4, 32
+KERNELS = {"flash_attention": fak, "wkv6_scan": wkvk, "ssd_scan": ssdk}
+
+# Scans: max |kernel - plain| / max |plain| below SCAN_REL.  float32 is
+# tests/test_kernels.py's bar; a bf16 output is rounded to 8 mantissa bits
+# and summed in another order than the plain version's.
+SCAN_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# (name, B, S, H, D, dtype, chunk): rwkv6-3b's prefills (H=40, D=64, chunk
+# min(64, S); 200 tokens are padded to 256), then the edge cases
+WKV_SHAPES = [
+    ("rwkv6_prefill_512", 4, 512, 40, 64, BF16, 64),
+    ("rwkv6_prefill_200", 4, 256, 40, 64, BF16, 64),
+    ("rwkv6_prefill_32", 4, 32, 40, 64, BF16, 32),
+    ("f32_D64", 2, 256, 8, 64, F32, 64),
+    ("f32_D16", 2, 128, 4, 16, F32, 64),
+    ("f32_D32_ragged", 1, 100, 4, 32, F32, 100),
+    ("bf16_B1_ragged", 1, 77, 40, 64, BF16, 77),
+]
+WKV_MAIN = ("rwkv6_prefill_512", "rwkv6_prefill_200", "rwkv6_prefill_32")
+# (name, B, S, H, P, N, dtype, chunk): zamba2-1.2b's prefills (H=64,
+# P=N=64, chunk min(256, S)), then the edge cases
+SSD_SHAPES = [
+    ("zamba2_prefill_512", 4, 512, 64, 64, 64, BF16, 256),
+    ("zamba2_prefill_200", 4, 200, 64, 64, 64, BF16, 200),
+    ("zamba2_prefill_32", 4, 32, 64, 64, 64, BF16, 32),
+    ("f32_P64", 2, 256, 8, 64, 64, F32, 128),
+    ("f32_P16_N16", 2, 128, 4, 16, 16, F32, 64),
+    ("f32_P32_N128_ragged", 1, 100, 4, 32, 128, F32, 100),
+    ("bf16_B1_ragged", 1, 77, 64, 64, 64, BF16, 77),
+]
+SSD_MAIN = ("zamba2_prefill_512", "zamba2_prefill_200", "zamba2_prefill_32")
+# float32-compute serve run against its plain run: rounding only
+FP32_SERVE_REL = 1e-3
+# serve: arch -> the launches each prefill must make, per kernel
+SERVE = {
+    "jag-surrogate": lambda cfg: {"flash_attention": cfg.n_layers},
+    "rwkv6-3b": lambda cfg: {"wkv6_scan": _count(cfg, "rwkv6")},
+    "zamba2-1.2b": lambda cfg: {"ssd_scan": _count(cfg, "mamba2"),
+                                "flash_attention": _count(cfg, "shared_attn")},
+}
 
 
 def say(phase, **kw):
@@ -134,11 +185,12 @@ def phase_build():
                 print(f"[build] {name}: {line.strip()}", flush=True)
     say("build", seconds=round(secs, 3), libraries=sorted(libs),
         built_now=sorted(_build.logs))
-    if "flash_attention" not in libs:
-        raise RuntimeError("flash_attention library missing after build")
+    missing = sorted(set(KERNELS) - set(libs))
+    if missing:
+        raise RuntimeError(f"libraries missing after build: {missing}")
 
 
-def phase_kernels(dev):
+def phase_flash(dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     errs, timing = {}, {}
     for (name, B, S, T, H, KV, D, dt, causal, window, softcap,
@@ -173,9 +225,123 @@ def phase_kernels(dev):
     return errs, timing
 
 
+def _count(cfg, kind):
+    return sum(spec.kind == kind for spec in cfg.plan)
+
+
+def _bound(nbytes, flops):
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def _tiles(S, tile=64):
+    """Row counts of the kernels' 64-row time tiles over S."""
+    return [min(tile, S - t0) for t0 in range(0, S, tile)]
+
+
+def wkv_work(r, k, v, w, u):
+    """Bytes (r, k, v, y in r's dtype, w and u in float32, each once) and
+    the products of the chunked algorithm at the kernel's 64-row tiles:
+    att over the pairs s < t, the bonus, att.v, the inter-chunk term and the
+    state update."""
+    B, S, H, D = r.shape
+    nbytes = 4 * r.numel() * r.element_size() + (w.numel() + u.numel()) * 4
+    flops = 0
+    for n in _tiles(S):
+        pairs = n * (n - 1) // 2
+        flops += 3 * pairs * D + 3 * n * D + 2 * (pairs + n) * D \
+            + 4 * n * D * D + D * D
+    return _bound(nbytes, B * H * flops)
+
+
+def ssd_work(x, dt, A, Bm, Cm):
+    """Bytes (x, y, B, C in x's dtype, dt and A in float32, each once) and
+    the products of the chunked algorithm at the kernel's 64-row tiles:
+    C.B^T and W over the pairs s <= t, W.x, C.h^T and the state update."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    nbytes = (2 * x.numel() + 2 * Bm.numel()) * x.element_size() \
+        + (dt.numel() + A.numel()) * 4
+    flops = 0
+    for n in _tiles(S):
+        pairs = n * (n + 1) // 2
+        flops += 2 * pairs * N + 3 * pairs + 2 * pairs * P + 4 * n * N * P \
+            + P * N
+    return _bound(nbytes, B * H * flops)
+
+
+def wkv_inputs(gen, dev, B, S, H, D, dt):
+    r, k, v = (torch.randn(B, S, H, D, generator=gen, device=dev).to(dt)
+               for _ in range(3))
+    w = torch.sigmoid(torch.randn(B, S, H, D, generator=gen, device=dev) + 2.0)
+    u = torch.randn(H, D, generator=gen, device=dev) * 0.1
+    return r, k, v, w, u
+
+
+def ssd_inputs(gen, dev, B, S, H, P, N, dt):
+    x = torch.randn(B, S, H, P, generator=gen, device=dev).to(dt)
+    dtv = torch.nn.functional.softplus(
+        torch.randn(B, S, H, generator=gen, device=dev)) * 0.5
+    A = -torch.exp(torch.randn(H, generator=gen, device=dev))
+    Bm = torch.randn(B, S, N, generator=gen, device=dev).to(dt)
+    Cm = torch.randn(B, S, N, generator=gen, device=dev).to(dt)
+    return x, dtv, A, Bm, Cm
+
+
+def phase_scan(dev, name, mod, plain, shapes, main, make, work):
+    """One scan kernel against its plain version at every shape, timed at
+    the main path's shapes."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    errs, timing = {}, {}
+    for shape, *dims, dt, chunk in shapes:
+        args = make(gen, dev, *dims, dt)
+        got = getattr(mod, name)(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        want = plain(*args, chunk=chunk)
+        err = float((got.float() - want.float()).abs().max())
+        rel = err / float(want.float().abs().max())
+        ok = bool(torch.isfinite(got.float()).all() and rel < SCAN_REL[dt])
+        errs[shape] = err
+        say("kernel_vs_plain", kernel=name, shape=shape, dims=dims,
+            dtype=str(dt).split(".")[-1], chunk=chunk, max_abs_err=err,
+            rel_err=rel, rel_tol=SCAN_REL[dt], ok=ok)
+        if not ok:
+            raise RuntimeError(f"{name} disagrees with its plain version at "
+                               f"{shape}: rel err {rel}")
+        if shape in main:
+            t = timing[shape] = {
+                "ms": device_ms(lambda: getattr(mod, name)(*args, chunk=chunk)),
+                "plain_ms": device_ms(lambda: plain(*args, chunk=chunk)),
+                "library_ms": None,  # no one PyTorch call computes the scan
+                **work(*args)}
+            say("kernel_time", kernel=name, shape=shape,
+                measured_on=torch.cuda.get_device_name(0),
+                nvidia_smi=env.nvidia_smi_line(), kernel_ms=t["ms"],
+                **{key: val for key, val in t.items() if key != "ms"})
+    return errs, timing
+
+
+def _launches():
+    return {name: mod.launches for name, mod in KERNELS.items()}
+
+
+def _rel(got, want):
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _free():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 @torch.inference_mode()
-def phase_serve(dev):
-    cfg = registry.get_config("jag-surrogate")
+def phase_serve(dev, arch):
+    """Serve one model at full width and depth; returns its launch counts."""
+    cfg = registry.get_config(arch)
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     max_len = max(PROMPT_LENS) + NEW_TOKENS + 8
     eng = ServeEngine(cfg, params, max_len=max_len)
@@ -185,47 +351,89 @@ def phase_serve(dev):
     eng.generate(requests[0][:, :8], 2)  # warm-up: library handles, allocator
     eng.stats = {k: type(v)() for k, v in eng.stats.items()}
 
-    fak.launches = 0
+    for mod in KERNELS.values():
+        mod.launches = 0
     outs = [eng.generate(t, NEW_TOKENS) for t in requests]
-    launches = fak.launches
+    launches = _launches()
 
-    want = len(PROMPT_LENS) * cfg.n_layers
+    per_prefill = SERVE[arch](cfg)
+    want = {name: len(PROMPT_LENS) * per_prefill.get(name, 0)
+            for name in KERNELS}
     if launches != want:
-        raise RuntimeError(f"flash_attention launched {launches} times in the "
-                           f"serve run, expected {want} (n_layers per prefill)")
+        raise RuntimeError(f"{arch}: kernel launches {launches} in the serve "
+                           f"run, expected {want}")
     for t, out in zip(requests, outs):
         if tuple(out.shape) != (BATCH, NEW_TOKENS):
             raise RuntimeError(f"generated shape {tuple(out.shape)}")
         if int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
             raise RuntimeError("generated tokens out of vocabulary range")
 
-    plain = ServeEngine(cfg.replace(use_pallas="never"), params, max_len=max_len)
-    rels = []
+    # The plain versions the kernels are held to: for rwkv6 the chunked WKV
+    # algorithm the kernel computes.  A deep random-weight model amplifies
+    # bf16 rounding, so the bf16 bar is 5e-2 or, where the model has two
+    # plain versions (rwkv6: blocked, which rounds its operands to bf16, and
+    # chunked), the distance between those two, whichever is larger.  A
+    # float32-compute run at the longest prompt holds the kernels' arithmetic
+    # end to end at FP32_SERVE_REL.
+    plain = ServeEngine(cfg.replace(use_pallas="never", wkv_impl="chunked"),
+                        params, max_len=max_len)
+    blocked = (ServeEngine(cfg.replace(use_pallas="never"), params,
+                           max_len=max_len)
+               if cfg.wkv_impl == "blocked" else None)
+    rels, bars = [], []
     for t in requests:
         lk, caches = eng.prefill_fn(params, t)
-        before = fak.launches
+        before = _launches()
         lp, _ = plain.prefill_fn(params, t)
-        if fak.launches != before:
-            raise RuntimeError("the plain run launched the kernel")
+        lb = blocked.prefill_fn(params, t)[0].float() if blocked else None
+        if _launches() != before:
+            raise RuntimeError("the plain run launched a kernel")
         ld, _ = eng.decode_fn(params, lk[:, -1].argmax(-1)[:, None], caches)
         lk, lp, ld = lk.float(), lp.float(), ld.float()
         if not (torch.isfinite(lk).all() and torch.isfinite(ld).all()):
             raise RuntimeError("non-finite logits")
-        rel = float((lk - lp).abs().max() / lp.abs().max())
+        rel = _rel(lk, lp)
+        bar = max(5e-2, _rel(lb, lp)) if lb is not None else 5e-2
         rels.append(rel)
-        if rel > 5e-2:
-            raise RuntimeError(f"first-token logits differ from the plain run "
-                               f"by rel {rel} at prompt {t.shape[1]}")
+        bars.append(bar)
+        if rel > bar:
+            raise RuntimeError(f"{arch}: first-token logits differ from the "
+                               f"plain run by rel {rel} > {bar} at prompt "
+                               f"{t.shape[1]}")
+    cfg32 = cfg.replace(compute_dtype="float32")
+    before = _launches()
+    lk32 = ServeEngine(cfg32, params, max_len=max_len).prefill_fn(
+        params, requests[-1])[0]
+    ran = {name: n - before[name] for name, n in _launches().items()}
+    if ran != {name: n // len(PROMPT_LENS) for name, n in want.items()}:
+        raise RuntimeError(f"the float32 run launched {ran}")
+    lp32 = ServeEngine(cfg32.replace(use_pallas="never", wkv_impl="chunked"),
+                       params, max_len=max_len).prefill_fn(params, requests[-1])[0]
+    rel32 = _rel(lk32, lp32)
+    if not rel32 < FP32_SERVE_REL:
+        raise RuntimeError(f"{arch}: float32 first-token logits differ from "
+                           f"the plain run by rel {rel32}")
     s = eng.stats
     say("serve", arch=cfg.arch_id, batch=BATCH, prompt_lens=list(PROMPT_LENS),
         new_tokens=NEW_TOKENS, n_layers=cfg.n_layers, d_model=cfg.d_model,
-        flash_launches=launches, expected_launches=want,
-        first_token_rel_err=rels, rel_tol=5e-2,
+        **{f"{name.split('_')[0]}_launches": n for name, n in launches.items()},
+        expected_launches=want, first_token_rel_err=rels, rel_tol=bars,
+        fp32_first_token_rel_err=rel32, fp32_rel_tol=FP32_SERVE_REL,
         prefill_tok_per_s=s["prefill_tokens"] / s["prefill_s"],
         decode_tok_per_s=s["decode_tokens"] / s["decode_s"],
-        stats=s, measured_on=torch.cuda.get_device_name(0),
+        stats=s, max_memory_allocated=torch.cuda.max_memory_allocated(),
+        measured_on=torch.cuda.get_device_name(0),
         nvidia_smi=env.nvidia_smi_line())
+    del eng, plain, blocked, params, caches
+    _free()
     return launches
+
+
+SOURCES = {
+    "flash_attention": "src/repro/kernels/flash_attention.py:26",
+    "wkv6_scan": "src/repro/kernels/wkv6_scan.py:18",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:21",
+}
 
 
 def main() -> int:
@@ -236,17 +444,33 @@ def main() -> int:
     dev = env.device("cuda")
     snap = phase_env()
     phase_build()
-    errs, timing = phase_kernels(dev)
-    launches = phase_serve(dev)
+    errs, timing = {}, {}
+    errs["flash_attention"], t = phase_flash(dev)
+    timing["flash_attention"] = t["jag_prefill_512"]
+    main_shapes = {"flash_attention": MAIN_PATH}
+    for name, mod, plain, shapes, main_, make, work in (
+            ("wkv6_scan", wkvk, ref.wkv6_chunked_ref, WKV_SHAPES, WKV_MAIN,
+             wkv_inputs, wkv_work),
+            ("ssd_scan", ssdk, ref.ssd_chunked_ref, SSD_SHAPES, SSD_MAIN,
+             ssd_inputs, ssd_work)):
+        errs[name], t = phase_scan(dev, name, mod, plain, shapes, main_, make,
+                                   work)
+        timing[name] = t[main_[0]]
+        main_shapes[name] = main_
+    _free()
+    launches = {name: 0 for name in KERNELS}
+    for arch in SERVE:  # each model's counts are read around its own run
+        for name, n in phase_serve(dev, arch).items():
+            launches[name] += n
     print(json.dumps({"kernels": [{
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:26",
-        "launches": launches,
-        "max_abs_err": max(errs[n] for n in MAIN_PATH),
-        **{key: timing["jag_prefill_512"][key] for key in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}]}),
-        flush=True)
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+        "replaces": SOURCES[name],
+        "launches": launches[name],
+        "max_abs_err": max(errs[name][n] for n in main_shapes[name]),
+        **{key: timing[name][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+        for name in KERNELS]}), flush=True)
     print(snap["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

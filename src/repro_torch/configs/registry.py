@@ -15,6 +15,8 @@ from repro_torch.configs.base import ModelConfig
 ARCHS = {
     "granite-3-8b": "repro_torch.configs.granite_3_8b",
     "jag-surrogate": "repro_torch.configs.jag_surrogate",
+    "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
 }
 
 

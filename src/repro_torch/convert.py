@@ -4,11 +4,16 @@
 with its leaves already turned into numpy arrays (the port never sees a JAX
 array) and returns the port's ``LM`` holding the same values:
 
-  * ``embed``, ``final_norm.scale`` and ``lm_head`` map by name;
+  * ``embed``, ``final_norm.scale`` and ``lm_head`` map by name, and so do
+    the leaves of the top-level ``shared_attn`` (zamba2's shared block);
   * ``prologue[j]`` is layer j;
   * ``blocks[i]`` holds superblock position i stacked over ``n_repeat``:
     row r of each leaf is layer ``len(prologue) + r * len(superblock) + i``,
-    whose ``norm1`` / ``attn`` / ``norm2`` / ``mlp`` leaves map by name.
+    whose leaves (``norm1``, ``attn``, ``norm2``, ``mlp``, ``rwkv``,
+    ``mamba``) map by name.  A ``shared_attn`` layer holds only the
+    ``norm1`` the reference gives it, which nothing reads; it is loaded
+    like any other leaf, so ``strict=True`` holds both trees to one set of
+    names.
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
 
-_TOP = ("embed", "final_norm", "lm_head", "prologue", "blocks")
+_TOP = ("embed", "final_norm", "lm_head", "prologue", "blocks", "shared_attn")
 
 
 def _flatten(tree, prefix=""):
@@ -49,6 +54,8 @@ def params_from_jax(tree, cfg: ModelConfig, device="cuda") -> lm.LM:
                                    "final_norm.scale": _tensor(tree["final_norm"]["scale"])}
     if "lm_head" in tree:
         sd["lm_head"] = _tensor(tree["lm_head"])
+    for name, leaf in _flatten(tree.get("shared_attn", {})).items():
+        sd[f"shared_attn.{name}"] = _tensor(leaf)
     for j, layer in enumerate(tree["prologue"]):
         for name, leaf in _flatten(layer).items():
             sd[f"layers.{j}.{name}"] = _tensor(leaf)

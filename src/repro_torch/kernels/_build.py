@@ -15,7 +15,7 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 from repro_torch import env
 
@@ -76,3 +76,25 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu``, built on first use."""
     lib = _libs.get(name)
     return lib if lib is not None else build_all()[name]
+
+
+def bind(name: str, entry: str, argtypes) -> Callable[..., None]:
+    """A launcher for the C entry point ``entry`` of ``csrc/<name>.cu``: it
+    passes its arguments as ``argtypes`` and raises RuntimeError when the
+    entry returns a nonzero cudaError (a refused launch never runs, and no
+    later synchronize reports it).  Each source exports
+    ``<name>_error_string``."""
+    lib = library(name)
+    fn = getattr(lib, entry)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    err_str = getattr(lib, f"{name}_error_string")
+    err_str.argtypes = [ctypes.c_int]
+    err_str.restype = ctypes.c_char_p
+
+    def launch(*args) -> None:
+        rc = fn(*args)
+        if rc != 0:
+            raise RuntimeError(f"{name} kernel launch failed: "
+                               f"{err_str(rc).decode()} (cudaError {rc})")
+    return launch

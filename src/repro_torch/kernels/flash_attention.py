@@ -20,22 +20,17 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
 
-_fn = None
+_launch = None
 
 
 def _kernel():
-    global _fn
-    if _fn is None:
-        lib = _build.library("flash_attention")
-        fn = lib.flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                       + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
-        lib.flash_attention_error_string.restype = ctypes.c_char_p
-        _fn = (fn, lib.flash_attention_error_string)
-    return _fn
+    global _launch
+    if _launch is None:
+        _launch = _build.bind(
+            "flash_attention", "flash_attention_fwd",
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    return _launch
 
 
 def check_args(q, k, v, *, softcap_val=None, window=None, q_pos0=0):
@@ -82,16 +77,13 @@ def flash_attention(q, k, v, *, causal=True, scale=None, softcap_val=None,
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    fn, err_str = _kernel()
+    launch = _kernel()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, S, T, H, KV, D, DTYPES[q.dtype], float(scale),
-                float(softcap_val or 0.0), int(bool(causal)), int(window or 0),
-                int(q_pos0), stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
-                           f"{err_str(rc).decode()} (cudaError {rc})")
+        launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+               B, S, T, H, KV, D, DTYPES[q.dtype], float(scale),
+               float(softcap_val or 0.0), int(bool(causal)), int(window or 0),
+               int(q_pos0), stream)
     launches += 1
     return out

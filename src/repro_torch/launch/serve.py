@@ -1,10 +1,10 @@
 """LM serving entry point of the port (``llm_serve_main``, after
 ``repro/launch/serve.py``).
 
-    python -m repro_torch.launch.serve --arch jag-surrogate --full
+    python -m repro_torch.launch.serve --arch {jag-surrogate,rwkv6-3b,zamba2-1.2b} --full
 
-serves random-weight requests on the card and prints one JSON line of
-throughput.  ``--device cpu`` runs on the CPU through the plain versions of
+serves random-weight requests on the card and prints one JSON object of
+throughput and of the launches of each kernel in the run.  ``--device cpu`` runs on the CPU through the plain versions of
 the kernels.  The Merlin CLIs of the reference come with later slices.
 """
 from __future__ import annotations
@@ -18,6 +18,8 @@ import torch
 from repro_torch import env
 from repro_torch.configs import registry
 from repro_torch.kernels import flash_attention as fak
+from repro_torch.kernels import ssd_scan as ssdk
+from repro_torch.kernels import wkv6_scan as wkvk
 from repro_torch.models import lm
 from repro_torch.serve.engine import ServeEngine
 
@@ -42,7 +44,9 @@ def llm_serve_main(argv=None):
     toks = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                          generator=torch.Generator(device=dev).manual_seed(1),
                          device=dev)
-    launches0 = fak.launches
+    kernels = {"flash_launches": fak, "wkv6_launches": wkvk,
+               "ssd_launches": ssdk}
+    launches0 = {name: mod.launches for name, mod in kernels.items()}
     out = eng.generate(toks, args.new_tokens)
     s = eng.stats
     print(json.dumps({
@@ -51,7 +55,8 @@ def llm_serve_main(argv=None):
         "decode_tok_per_s": round(s["decode_tokens"] / max(s["decode_s"], 1e-9)),
         "generated_shape": list(out.shape),
         "device": env.device_name(dev),
-        "flash_launches": fak.launches - launches0,
+        **{name: mod.launches - launches0[name]
+           for name, mod in kernels.items()},
     }, indent=1))
     return 0
 

@@ -1,5 +1,5 @@
 """Core neural layers (port of ``repro/models/layers.py``, dense subset):
-norms, RoPE, the GLU MLP and GQA attention.
+norms, RoPE, the GLU MLP and GQA attention (with the reference's ``d_in``).
 
 Parameters live in ``nn.Module``s whose attribute names are the reference's
 dict keys (``p.wq`` for ``p["wq"]``); the math is plain functions on
@@ -111,9 +111,9 @@ def glu_mlp(p, x, cdtype, act=F.silu):
 # ---------------------------------------------------------------------------
 
 class Attention(nn.Module):
-    def __init__(self, gen, cfg: ModelConfig, device):
+    def __init__(self, gen, cfg: ModelConfig, device, d_in=None):
         super().__init__()
-        d = cfg.d_model
+        d = d_in or cfg.d_model
         H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         dt = dtype_of(cfg.param_dtype)
         self.wq = dense_init(gen, (d, H * Dh), d, dt, device)
@@ -125,8 +125,9 @@ class Attention(nn.Module):
             self.knorm = init_rmsnorm(Dh, dt, device)
 
 
-def init_attention(gen, cfg: ModelConfig, device) -> Attention:
-    return Attention(gen, cfg, device)
+def init_attention(gen, cfg: ModelConfig, device, d_in=None) -> Attention:
+    """``d_in`` is the input width (zamba2's shared block takes 2·d_model)."""
+    return Attention(gen, cfg, device, d_in)
 
 
 def attention_scale(cfg: ModelConfig) -> float:

@@ -1,5 +1,6 @@
-"""Tests of the port that need the card: the CUDA flash-attention kernel
-against its plain version, and the serving path launching it.  They carry
+"""Tests of the port that need the card: each CUDA kernel (flash attention,
+the WKV6 and SSD scans) against its plain version, and the serving paths
+launching them.  They carry
 the ``cuda`` marker and skip without a card; on the card run
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -13,12 +14,17 @@ import torch
 from repro_torch.configs import registry
 from repro_torch.kernels import flash_attention as fak
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as ssdk
+from repro_torch.kernels import wkv6_scan as wkvk
 from repro_torch.models import lm
 from repro_torch.serve.engine import ServeEngine
 
 pytestmark = pytest.mark.cuda
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 TOL = {"float32": (2e-5, 1e-3), "bfloat16": (2e-2, 1e-2)}
+# scans: max |kernel - plain| / max |plain|; bf16 outputs are rounded to 8
+# mantissa bits and summed in another order
+SCAN_REL = {"float32": 1e-4, "bfloat16": 1e-2}
 
 
 @pytest.fixture
@@ -81,6 +87,120 @@ def test_serve_launches_kernel_per_layer_and_matches_plain(cuda_device):
     assert fak.launches - before == cfg.n_layers
     lk, _ = eng.prefill_fn(params, toks)
     plain = ServeEngine(cfg.replace(use_pallas="never"), params, max_len=128)
+    lp, _ = plain.prefill_fn(params, toks)
+    lk, lp = lk.float(), lp.float()
+    assert torch.isfinite(lk).all()
+    assert float((lk - lp).abs().max() / lp.abs().max()) < 5e-2
+
+
+def _rel(got, want):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _wkv_inputs(dev, dtype, B, S, H, D, seed=2):
+    rng = np.random.default_rng(seed)
+    r, k, v = (torch.from_numpy(rng.standard_normal((B, S, H, D), dtype=np.float32))
+               .to(dev, TDT[dtype]) for _ in range(3))
+    w = torch.sigmoid(torch.from_numpy(
+        rng.standard_normal((B, S, H, D), dtype=np.float32)) + 2.0).to(dev)
+    u = torch.from_numpy(rng.standard_normal((H, D), dtype=np.float32) * 0.1).to(dev)
+    return r, k, v, w, u
+
+
+def _ssd_inputs(dev, dtype, B, S, H, P, N, seed=3):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((B, S, H, P), dtype=np.float32))
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((B, S, H), dtype=np.float32))) * 0.5
+    A = -torch.exp(torch.from_numpy(rng.standard_normal(H, dtype=np.float32)))
+    Bm = torch.from_numpy(rng.standard_normal((B, S, N), dtype=np.float32))
+    Cm = torch.from_numpy(rng.standard_normal((B, S, N), dtype=np.float32))
+    return (x.to(dev, TDT[dtype]), dt.to(dev), A.to(dev), Bm.to(dev, TDT[dtype]),
+            Cm.to(dev, TDT[dtype]))
+
+
+@pytest.mark.parametrize("B,S,H,D,dtype,chunk", [
+    (4, 512, 40, 64, "bfloat16", 64),   # rwkv6-3b prefill
+    (4, 256, 40, 64, "bfloat16", 64),   # 200 tokens padded to 256
+    (4, 32, 40, 64, "bfloat16", 32),
+    (2, 128, 4, 64, "float32", 64),
+    (1, 96, 3, 16, "float32", 32),
+    (2, 100, 4, 32, "float32", 100),    # ragged against the 64-row tile
+])
+def test_wkv6_kernel_vs_plain(cuda_device, B, S, H, D, dtype, chunk):
+    r, k, v, w, u = _wkv_inputs(cuda_device, dtype, B, S, H, D)
+    before = wkvk.launches
+    got = wkvk.wkv6_scan(r, k, v, w, u, chunk=chunk)
+    torch.cuda.synchronize()
+    assert wkvk.launches == before + 1
+    want = ref.wkv6_chunked_ref(r, k, v, w, u, chunk=chunk)
+    assert got.dtype == r.dtype and got.shape == r.shape
+    assert _rel(got, want) < SCAN_REL[dtype]
+
+
+@pytest.mark.parametrize("B,S,H,P,N,dtype,chunk", [
+    (4, 512, 64, 64, 64, "bfloat16", 256),  # zamba2-1.2b prefill
+    (4, 200, 64, 64, 64, "bfloat16", 200),  # ragged last tile
+    (4, 32, 64, 64, 64, "bfloat16", 32),
+    (2, 128, 4, 64, 64, "float32", 128),
+    (1, 96, 3, 16, 16, "float32", 32),
+    (2, 100, 4, 32, 128, "float32", 100),
+])
+def test_ssd_kernel_vs_plain(cuda_device, B, S, H, P, N, dtype, chunk):
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda_device, dtype, B, S, H, P, N)
+    before = ssdk.launches
+    got = ssdk.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssdk.launches == before + 1
+    want = ref.ssd_chunked_ref(x, dt, A, Bm, Cm, chunk=chunk)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    assert _rel(got, want) < SCAN_REL[dtype]
+
+
+def test_scan_kernels_refuse_what_they_cannot_take(cuda_device):
+    r, k, v, w, u = _wkv_inputs(cuda_device, "float32", 1, 8, 2, 48)
+    with pytest.raises(ValueError, match="head dim"):
+        wkvk.wkv6_scan(r, k, v, w, u, chunk=8)
+    r, k, v, w, u = _wkv_inputs(cuda_device, "float32", 1, 8, 2, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        wkvk.wkv6_scan(r.transpose(1, 2).contiguous().transpose(1, 2), k, v,
+                       w, u, chunk=8)
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda_device, "float32", 1, 8, 2, 48, 16)
+    with pytest.raises(ValueError, match="head dim"):
+        ssdk.ssd_scan(x, dt, A, Bm, Cm, chunk=8)
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda_device, "float32", 1, 8, 2, 64, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssdk.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A,
+                      Bm, Cm, chunk=8)
+
+
+@pytest.mark.parametrize("arch,n_repeat", [("rwkv6-3b", 2), ("zamba2-1.2b", 1)])
+@torch.inference_mode()
+def test_serve_scan_models_launch_kernels_and_match_plain(cuda_device, arch,
+                                                          n_repeat):
+    """Full width, depth cut to n_repeat superblocks: every prefill scan
+    and shared attention launches its kernel once, decode launches none."""
+    cfg = registry.get_config(arch)
+    cfg = cfg.replace(n_repeat=n_repeat, n_layers=len(cfg.prologue)
+                      + n_repeat * len(cfg.superblock))
+    params = lm.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                            cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (2, 100), device=cuda_device,
+                         generator=torch.Generator(device=cuda_device).manual_seed(1))
+    eng = ServeEngine(cfg, params, max_len=128)
+    mods = (fak, wkvk, ssdk)
+    before = [m.launches for m in mods]
+    out = eng.generate(toks, 4)
+    assert out.shape == (2, 4)
+    kinds = [spec.kind for spec in cfg.plan]
+    want = [kinds.count("shared_attn"), kinds.count("rwkv6"), kinds.count("mamba2")]
+    assert [m.launches - b for m, b in zip(mods, before)] == want
+    lk, _ = eng.prefill_fn(params, toks)
+    # the kernels' plain versions: for rwkv6 the chunked WKV algorithm
+    plain = ServeEngine(cfg.replace(use_pallas="never", wkv_impl="chunked"),
+                        params, max_len=128)
     lp, _ = plain.prefill_fn(params, toks)
     lk, lp = lk.float(), lp.float()
     assert torch.isfinite(lk).all()

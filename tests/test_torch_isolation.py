@@ -31,6 +31,9 @@ for name, call in [("env.device", lambda: env.device()),
                    ("env.device_cuda", lambda: env.device("cuda")),
                    ("llm_serve_main", lambda: llm_serve_main(
                        ["--arch", "jag-surrogate", "--prompt-len", "8",
+                        "--new-tokens", "2"])),
+                   ("llm_serve_main_rwkv6", lambda: llm_serve_main(
+                       ["--arch", "rwkv6-3b", "--prompt-len", "8",
                         "--new-tokens", "2"]))]:
     try:
         call()
@@ -57,7 +60,9 @@ def test_port_imports_no_jax_and_no_reference():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["leaks"] == []
     for mod in ("repro_torch.env", "repro_torch.kernels.flash_attention",
-                "repro_torch.models.lm", "repro_torch.serve.engine",
+                "repro_torch.kernels.wkv6_scan", "repro_torch.kernels.ssd_scan",
+                "repro_torch.models.lm", "repro_torch.models.rwkv",
+                "repro_torch.models.ssm", "repro_torch.serve.engine",
                 "repro_torch.launch.serve", "repro_torch.convert"):
         assert mod in res["modules"]
     assert res["cpu_ok"] == "cpu"
