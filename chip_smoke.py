@@ -6,7 +6,9 @@
 Phases, each printing its own lines; any failure raises and exits non-zero:
   1. environment: versions, the card's name and power limit;
   2. build: every CUDA source under src/repro_torch/kernels/csrc with nvcc
-     for sm_90a, into build/ (flash_attention, wkv6_scan, ssd_scan);
+     for sm_90a, into build/ (flash_attention, wkv6_scan, ssd_scan); then
+     the tensor-core instructions of each kernel function (cuobjdump -sass),
+     which every bf16 flash and WKV6 instance must have;
   3. each kernel against its plain PyTorch version on the card, at the
      main paths' shapes and the edge cases, with the tolerance stated, and
      device times of kernel, plain version and PyTorch's own call (where
@@ -26,7 +28,10 @@ from __future__ import annotations
 import gc
 import json
 import os
+import re
+import shutil
 import statistics
+import subprocess
 import sys
 import time
 
@@ -64,6 +69,15 @@ SHAPES = [
     ("zamba2_prefill_512", 4, 512, 512, 32, 32, 64, BF16, True, None, None, 0),
     ("zamba2_prefill_200", 4, 200, 200, 32, 32, 64, BF16, True, None, None, 0),
     ("zamba2_prefill_32", 4, 32, 32, 32, 32, 64, BF16, True, None, None, 0),
+    # bf16 on the tensor cores: every feature and ragged edge of the tiling
+    ("bf16_window64_softcap30_D32", 2, 300, 300, 4, 2, 32, BF16, True, 64,
+     30.0, 0),
+    ("bf16_D16", 1, 130, 130, 2, 1, 16, BF16, True, None, None, 0),
+    ("bf16_D128_gqa_ragged", 2, 200, 200, 8, 2, 128, BF16, True, None, None,
+     0),
+    ("bf16_cross", 1, 33, 70, 4, 1, 64, BF16, False, None, None, 0),
+    ("bf16_S1_q_pos0_100", 2, 1, 101, 4, 4, 64, BF16, True, None, None, 100),
+    ("bf16_ragged_S45_T83", 1, 45, 83, 4, 2, 64, BF16, False, None, None, 0),
 ]
 MAIN_PATH = ("jag_prefill_512", "jag_prefill_200", "jag_prefill_32",
              "zamba2_prefill_512", "zamba2_prefill_200", "zamba2_prefill_32")
@@ -74,16 +88,23 @@ KERNELS = {"flash_attention": fak, "wkv6_scan": wkvk, "ssd_scan": ssdk}
 # tests/test_kernels.py's bar; a bf16 output is rounded to 8 mantissa bits
 # and summed in another order than the plain version's.
 SCAN_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
-# (name, B, S, H, D, dtype, chunk): rwkv6-3b's prefills (H=40, D=64, chunk
-# min(64, S); 200 tokens are padded to 256), then the edge cases
+# (name, B, S, H, D, decay, dtype, chunk): rwkv6-3b's prefills (H=40, D=64,
+# chunk min(64, S); 200 tokens are padded to 256), then the edge cases.
+# decay "sigmoid": w = sigmoid(N(0,1) + 2); "strong": w = exp(-exp(N(1, 2))),
+# which reaches the clip at 1e-12 as rwkv6-3b's decays can.
 WKV_SHAPES = [
-    ("rwkv6_prefill_512", 4, 512, 40, 64, BF16, 64),
-    ("rwkv6_prefill_200", 4, 256, 40, 64, BF16, 64),
-    ("rwkv6_prefill_32", 4, 32, 40, 64, BF16, 32),
-    ("f32_D64", 2, 256, 8, 64, F32, 64),
-    ("f32_D16", 2, 128, 4, 16, F32, 64),
-    ("f32_D32_ragged", 1, 100, 4, 32, F32, 100),
-    ("bf16_B1_ragged", 1, 77, 40, 64, BF16, 77),
+    ("rwkv6_prefill_512", 4, 512, 40, 64, "sigmoid", BF16, 64),
+    ("rwkv6_prefill_200", 4, 256, 40, 64, "sigmoid", BF16, 64),
+    ("rwkv6_prefill_32", 4, 32, 40, 64, "sigmoid", BF16, 32),
+    ("f32_D64", 2, 256, 8, 64, "sigmoid", F32, 64),
+    ("f32_D16", 2, 128, 4, 16, "sigmoid", F32, 64),
+    ("f32_D32_ragged", 1, 100, 4, 32, "sigmoid", F32, 100),
+    ("bf16_B1_ragged", 1, 77, 40, 64, "sigmoid", BF16, 77),
+    ("strong_rwkv6_512", 4, 512, 40, 64, "strong", BF16, 64),
+    ("strong_S1", 2, 1, 40, 64, "strong", BF16, 1),
+    ("strong_S15", 2, 15, 40, 64, "strong", BF16, 15),
+    ("strong_S17", 2, 17, 40, 64, "strong", BF16, 17),
+    ("strong_B1_H40", 1, 77, 40, 64, "strong", BF16, 77),
 ]
 WKV_MAIN = ("rwkv6_prefill_512", "rwkv6_prefill_200", "rwkv6_prefill_32")
 # (name, B, S, H, P, N, dtype, chunk): zamba2-1.2b's prefills (H=64,
@@ -144,9 +165,34 @@ def valid_pairs(S, T, causal, window, q_pos0):
     return n
 
 
+def sdpa_backends(qt, kt, vt, causal, scale):
+    """Device ms of scaled_dot_product_attention restricted to each backend
+    (None where the backend refuses these inputs), to say which one its
+    default dispatch matches."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    out = {}
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH"):
+        backend = getattr(SDPBackend, name)
+
+        def call():
+            with sdpa_kernel([backend]):
+                torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, scale=scale)
+        try:
+            call()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            out[name] = None
+            continue
+        out[name] = device_ms(call)
+    return out
+
+
 def time_kernel(q, k, v, out, kw):
     """Device times of the kernel, its plain version and PyTorch's own
-    attention call on the same inputs, beside the card's bound."""
+    attention call on the same inputs (by default and per backend), beside
+    the card's bound."""
     B, S, H, D = q.shape
     T = k.shape[1]
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -155,15 +201,20 @@ def time_kernel(q, k, v, out, kw):
                                         kw["q_pos0"])
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
-    return {
+    t = {
         "ms": device_ms(lambda: fak.flash_attention(q, k, v, **kw)),
         "plain_ms": device_ms(lambda: ref.flash_attention_ref(q, k, v, **kw)),
         "library_ms": device_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=kw["causal"], scale=1.0 / D ** 0.5)),
+        "library_backend_ms": sdpa_backends(qt, kt, vt, kw["causal"],
+                                            1.0 / D ** 0.5),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes, "flops": flops}
+    t["kernel_over_bound"] = t["ms"] / t["bound_ms"]
+    t["kernel_over_library"] = t["ms"] / t["library_ms"]
+    return t
 
 
 def phase_env():
@@ -188,6 +239,37 @@ def phase_build():
     missing = sorted(set(KERNELS) - set(libs))
     if missing:
         raise RuntimeError(f"libraries missing after build: {missing}")
+
+
+def phase_sass():
+    """Tensor-core instructions (HMMA, HGMMA) per kernel function of each
+    built library, read from ``cuobjdump -sass``.  Every bf16 instance of
+    the flash and WKV6 kernels must have some: their products run on the
+    tensor cores."""
+    nvcc = env.nvcc_path()
+    tool = shutil.which("cuobjdump") or (
+        os.path.join(os.path.dirname(nvcc), "cuobjdump") if nvcc else None)
+    if tool is None or not os.path.exists(tool):
+        raise RuntimeError("cuobjdump not found beside nvcc")
+    counts = {}
+    for name in KERNELS:
+        text = subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        fn = None
+        for line in text.splitlines():
+            found = re.search(r"Function : (\S+)", line)
+            if found:
+                fn = found.group(1)
+                counts[fn] = 0
+            elif fn and re.search(r"\bH(G)?MMA\b", line):
+                counts[fn] += 1
+    say("sass", tensor_core_instructions=counts)
+    bf16 = [fn for fn in counts if "flash_fwd_bf16" in fn
+            or ("wkv6_kernel" in fn and "bfloat16" in fn)]
+    if len(bf16) != 7 or not all(counts[fn] for fn in bf16):
+        raise RuntimeError(f"bf16 flash / WKV6 instances without tensor-core "
+                           f"instructions: {counts}")
 
 
 def phase_flash(dev):
@@ -244,13 +326,13 @@ def _tiles(S, tile=64):
 
 def wkv_work(r, k, v, w, u):
     """Bytes (r, k, v, y in r's dtype, w and u in float32, each once) and
-    the products of the chunked algorithm at the kernel's 64-row tiles:
+    the products of the chunked algorithm at the kernel's 16-row chunks:
     att over the pairs s < t, the bonus, att.v, the inter-chunk term and the
     state update."""
     B, S, H, D = r.shape
     nbytes = 4 * r.numel() * r.element_size() + (w.numel() + u.numel()) * 4
     flops = 0
-    for n in _tiles(S):
+    for n in _tiles(S, 16):
         pairs = n * (n - 1) // 2
         flops += 3 * pairs * D + 3 * n * D + 2 * (pairs + n) * D \
             + 4 * n * D * D + D * D
@@ -273,10 +355,12 @@ def ssd_work(x, dt, A, Bm, Cm):
     return _bound(nbytes, B * H * flops)
 
 
-def wkv_inputs(gen, dev, B, S, H, D, dt):
+def wkv_inputs(gen, dev, B, S, H, D, decay, dt):
     r, k, v = (torch.randn(B, S, H, D, generator=gen, device=dev).to(dt)
                for _ in range(3))
-    w = torch.sigmoid(torch.randn(B, S, H, D, generator=gen, device=dev) + 2.0)
+    n = torch.randn(B, S, H, D, generator=gen, device=dev)
+    w = torch.exp(-torch.exp(1.0 + 2.0 * n)) if decay == "strong" \
+        else torch.sigmoid(n + 2.0)
     u = torch.randn(H, D, generator=gen, device=dev) * 0.1
     return r, k, v, w, u
 
@@ -317,6 +401,7 @@ def phase_scan(dev, name, mod, plain, shapes, main, make, work):
                 "plain_ms": device_ms(lambda: plain(*args, chunk=chunk)),
                 "library_ms": None,  # no one PyTorch call computes the scan
                 **work(*args)}
+            t["kernel_over_bound"] = t["ms"] / t["bound_ms"]
             say("kernel_time", kernel=name, shape=shape,
                 measured_on=torch.cuda.get_device_name(0),
                 nvidia_smi=env.nvidia_smi_line(), kernel_ms=t["ms"],
@@ -444,6 +529,7 @@ def main() -> int:
     dev = env.device("cuda")
     snap = phase_env()
     phase_build()
+    phase_sass()
     errs, timing = {}, {}
     errs["flash_attention"], t = phase_flash(dev)
     timing["flash_attention"] = t["jag_prefill_512"]

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` becomes ``build/lib<name>-<hash>.so`` at the repo
 root (``build/`` is git-ignored), compiled by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface.  The hash covers the source and the
-flags, so an edited source is rebuilt and an unchanged one is reused.  All
-sources compile at once, one ``nvcc`` each.  Nothing is built at import: the
-first wrapper call (or ``build_all``) builds.  A failed build raises.
+shared library with a plain C interface.  The hash covers the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source is rebuilt
+and an unchanged one is reused.  All sources compile at once, one ``nvcc``
+each.  Nothing is built at import: the first wrapper call (or ``build_all``)
+builds.  A failed build raises.
 """
 from __future__ import annotations
 
@@ -35,6 +36,8 @@ def sources() -> List[Path]:
 
 def _target(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
 
 
@@ -70,6 +73,11 @@ def build_all() -> Dict[str, ctypes.CDLL]:
         for src in todo:
             _libs[src.stem] = ctypes.CDLL(str(_target(src)))
         return dict(_libs)
+
+
+def library_path(name: str) -> Path:
+    """Where the library built from ``csrc/<name>.cu`` lies (or will)."""
+    return _target(CSRC / f"{name}.cu")
 
 
 def library(name: str) -> ctypes.CDLL:

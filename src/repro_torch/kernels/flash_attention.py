@@ -3,7 +3,9 @@ the port of ``repro/kernels/flash_attention.py``.
 
 Same signature as the Pallas kernel: q (B,S,H,D), k/v (B,T,KV,D) ->
 (B,S,H,D) in q's dtype.  On a CUDA tensor it launches the kernel on the
-current stream or raises; on a CPU tensor it runs the plain version
+current stream or raises: bfloat16 runs on the tensor cores (mma.sync, P
+rounded to bf16; ``ref.flash_attention_tc_ref`` mirrors its rounding),
+float32 on scalar FMAs.  On a CPU tensor it runs the plain version
 (``ref.flash_attention_ref``).  ``launches`` counts kernel launches.
 """
 from __future__ import annotations

@@ -4,7 +4,9 @@
 path of the port, the yardstick ``chip_smoke.py`` holds the kernel against on
 the card, and the ``use_pallas="never"`` path.  It is chunked over KV blocks
 with the same online softmax, so its memory stays O(S·block).  It computes in
-the kernel's order: ``q·scale`` in float32, the dot, softcap, then the mask.
+the Pallas kernel's order: ``q·scale`` in float32, the dot, softcap, then the
+mask.  ``flash_attention_tc_ref`` mirrors the bf16 tensor-core kernel's
+rounding points (the logits scaled after the product, P rounded to bf16).
 
 ``naive_attention`` is the O(S²) oracle, in the reference's own order (dot,
 then scale).  ``decode_attention_ref`` is one token against a cache; the
@@ -15,8 +17,10 @@ The scans follow the reference function for function: ``ssd_scan_ref`` and
 ``wkv6_chunked_ref`` are the chunked algorithms the CUDA scan kernels
 compute, and their yardsticks on the card; ``wkv6_blocked_ref`` is the
 factored form with the reference's bf16 casts and clamps (the CPU path of
-``wkv_impl="blocked"``); the ``*_decode_ref`` functions are one decode step,
-plain on every device as in the reference.
+``wkv_impl="blocked"``); ``wkv6_subtile_ref`` mirrors the WKV kernel's
+16-row chunks and split bf16 products; the ``*_decode_ref`` functions are one
+decode step, plain on every device as in the reference.  The two mirrors
+are for tests only: no served path calls them.
 """
 from __future__ import annotations
 
@@ -62,14 +66,15 @@ def naive_attention(q, k, v, *, causal=True, scale=None, softcap_val=None,
     return out.reshape(B, S, H, D).to(q.dtype)
 
 
-def flash_attention_ref(q, k, v, *, causal=True, scale=None, softcap_val=None,
-                        window=None, q_pos0=0, block_k=1024):
-    """Flash-style chunked attention (online softmax over KV blocks)."""
+def _online_softmax_attention(q, k, v, *, causal, scale, softcap_val, window,
+                              q_pos0, block_k, scale_logits, p_dtype):
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     g = H // KV
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    qf = q.reshape(B, S, KV, g, D).float() * scale
+    qf = q.reshape(B, S, KV, g, D).float()
+    if not scale_logits:
+        qf = qf * scale
     qpos = (torch.arange(S, device=q.device) + q_pos0)[:, None]
     m = torch.full((B, KV, g, S), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((B, KV, g, S), dtype=torch.float32, device=q.device)
@@ -78,6 +83,8 @@ def flash_attention_ref(q, k, v, *, causal=True, scale=None, softcap_val=None,
         kc = k[:, start:start + block_k].float()
         vc = v[:, start:start + block_k].float()
         logits = torch.einsum("bskgd,btkd->bkgst", qf, kc)
+        if scale_logits:
+            logits = logits * scale
         logits = _apply_softcap(logits, softcap_val)
         kpos = start + torch.arange(kc.shape[1], device=q.device)[None, :]
         logits = torch.where(_mask(qpos, kpos, causal, window), logits, NEG_INF)
@@ -85,11 +92,35 @@ def flash_attention_ref(q, k, v, *, causal=True, scale=None, softcap_val=None,
         p = torch.exp(logits - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1)
-        acc = acc * corr[..., None] + torch.einsum("bkgst,btkd->bkgsd", p, vc)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgst,btkd->bkgsd", p.to(p_dtype).float(), vc)
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     out = out.reshape(B, H, S, D).transpose(1, 2)  # (B,S,H,D) with H = KV*g
     return out.to(q.dtype).contiguous()
+
+
+def flash_attention_ref(q, k, v, *, causal=True, scale=None, softcap_val=None,
+                        window=None, q_pos0=0, block_k=1024):
+    """Flash-style chunked attention (online softmax over KV blocks)."""
+    return _online_softmax_attention(
+        q, k, v, causal=causal, scale=scale, softcap_val=softcap_val,
+        window=window, q_pos0=q_pos0, block_k=block_k, scale_logits=False,
+        p_dtype=torch.float32)
+
+
+def flash_attention_tc_ref(q, k, v, *, causal=True, scale=None,
+                           softcap_val=None, window=None, q_pos0=0,
+                           block_k=64):
+    """Plain mirror of the bf16 tensor-core flash kernel's rounding points:
+    the fp32 logits of the unscaled q and k are multiplied by the scale, and
+    P is rounded to q's dtype as the operand of P·V while l sums the
+    unrounded P; 64-key blocks as the kernel's tiles.  For float32 inputs
+    nothing is rounded.  No served path calls it."""
+    return _online_softmax_attention(
+        q, k, v, causal=causal, scale=scale, softcap_val=softcap_val,
+        window=window, q_pos0=q_pos0, block_k=block_k, scale_logits=True,
+        p_dtype=q.dtype)
 
 
 def decode_attention_ref(q, ck, cv, *, kv_len, scale=None, softcap_val=None,
@@ -267,6 +298,54 @@ def wkv6_chunked_ref(r, k, v, w, u, *, chunk=64):
 
     y = (y_intra + y_bonus + y_inter).reshape(Bb, S, H, D)
     return y.to(r.dtype)
+
+
+def _split_einsum(eq, a, b, dtype):
+    """The kernel's split product: with x_hi = x rounded to ``dtype`` and
+    x_lo = (x - x_hi) rounded to it, a.b = a_hi.b_hi + a_hi.b_lo + a_lo.b_hi
+    summed in float32.  For float32 it is the plain product."""
+    def split(x):
+        hi = x.to(dtype).float()
+        return hi, (x - hi).to(dtype).float()
+
+    (a_hi, a_lo), (b_hi, b_lo) = split(a), split(b)
+    return torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo) \
+        + torch.einsum(eq, a_hi, b_hi)
+
+
+def wkv6_subtile_ref(r, k, v, w, u, *, sub=16):
+    """Plain mirror of the WKV kernel's design: the chunked algorithm at
+    chunks of ``sub`` rows (a ragged last one cut, so any S), with the
+    kernel's rounding points: every product of att, r·exp(ecl),
+    k·exp(cl_last - cl) or the state with v or the state is a split
+    product in r's dtype (``_split_einsum``), the state is decayed and
+    summed in float32.  For float32 inputs nothing is rounded.  No served
+    path calls it."""
+    Bb, S, H, D = r.shape
+    f32 = torch.float32
+    rf, kf, vf, uf = r.float(), k.float(), v.float(), u.float()
+    lw = _log_decay(w)
+    state = torch.zeros((Bb, H, D, D), dtype=f32, device=r.device)
+    ys = []
+    for t0 in range(0, S, sub):
+        rs, ks, vs, ls = (x[:, t0:t0 + sub] for x in (rf, kf, vf, lw))
+        n = rs.shape[1]
+        cl = torch.cumsum(ls, dim=1)
+        ecl = cl - ls
+        smask = torch.tril(torch.ones((n, n), dtype=torch.bool,
+                                      device=r.device), diagonal=-1)
+        expo = torch.where(smask[:, :, None, None],
+                           ecl[:, :, None] - cl[:, None], -torch.inf)
+        att = torch.einsum("bthd,btshd,bshd->bhts", rs, torch.exp(expo), ks)
+        att = att + torch.diag_embed(torch.einsum("bthd,hd,bthd->bht", rs, uf, ks))
+        y = _split_einsum("bhts,bshe->bthe", att, vs, r.dtype) \
+            + _split_einsum("bthd,bhde->bthe", rs * torch.exp(ecl), state,
+                            r.dtype)
+        ktail = ks * torch.exp(cl[:, -1:] - cl)
+        state = state * torch.exp(cl[:, -1])[..., None] \
+            + _split_einsum("bshd,bshe->bhde", ktail, vs, r.dtype)
+        ys.append(y)
+    return torch.cat(ys, dim=1).to(r.dtype)
 
 
 def wkv6_blocked_ref(r, k, v, w, u, *, chunk=64, subchunk=16):

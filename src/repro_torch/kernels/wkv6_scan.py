@@ -6,7 +6,8 @@ Same signature as the Pallas kernel: r, k, v, w (B,S,H,D) and u (H,D) ->
 On a CUDA tensor it launches the kernel on the current stream or raises; on
 a CPU tensor it runs the plain version (``ref.wkv6_chunked_ref``).
 ``chunk`` is the padding unit of the chunked algorithm: the plain version
-needs S to be a multiple of it, the kernel takes any S.  ``launches`` counts
+needs S to be a multiple of it, the kernel takes any S (it walks 16-row
+chunks of its own; ``ref.wkv6_subtile_ref`` mirrors its rounding).  ``launches`` counts
 kernel launches.
 """
 from __future__ import annotations

@@ -50,6 +50,13 @@ def _qkv(dev, dtype, B, S, T, H, KV, D, seed=1):
     (1, 130, 130, 2, 1, 16, "float32", True, None, None, 0),
     (1, 129, 129, 4, 2, 128, "bfloat16", True, None, None, 0),
     (2, 70, 200, 4, 4, 64, "bfloat16", False, 50, None, 100),
+    # bf16 on the tensor cores: every feature and ragged edge of the tiling
+    (2, 300, 300, 4, 2, 32, "bfloat16", True, 64, 30.0, 0),
+    (1, 130, 130, 2, 1, 16, "bfloat16", True, None, None, 0),
+    (2, 200, 200, 8, 2, 128, "bfloat16", True, None, None, 0),
+    (1, 33, 70, 4, 1, 64, "bfloat16", False, None, None, 0),
+    (2, 1, 101, 4, 4, 64, "bfloat16", True, None, None, 100),
+    (1, 45, 83, 4, 2, 64, "bfloat16", False, None, None, 0),
 ])
 def test_kernel_vs_plain(cuda_device, B, S, T, H, KV, D, dtype, causal,
                          window, softcap, q_pos0):
@@ -99,12 +106,15 @@ def _rel(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
-def _wkv_inputs(dev, dtype, B, S, H, D, seed=2):
+def _wkv_inputs(dev, dtype, B, S, H, D, seed=2, strong=False):
+    """``strong``: w = exp(-exp(N(1, 2))), which reaches the clip at 1e-12
+    as rwkv6-3b's data-dependent decays can."""
     rng = np.random.default_rng(seed)
     r, k, v = (torch.from_numpy(rng.standard_normal((B, S, H, D), dtype=np.float32))
                .to(dev, TDT[dtype]) for _ in range(3))
-    w = torch.sigmoid(torch.from_numpy(
-        rng.standard_normal((B, S, H, D), dtype=np.float32)) + 2.0).to(dev)
+    n = torch.from_numpy(rng.standard_normal((B, S, H, D), dtype=np.float32))
+    w = (torch.exp(-torch.exp(1.0 + 2.0 * n)) if strong
+         else torch.sigmoid(n + 2.0)).to(dev)
     u = torch.from_numpy(rng.standard_normal((H, D), dtype=np.float32) * 0.1).to(dev)
     return r, k, v, w, u
 
@@ -136,6 +146,26 @@ def test_wkv6_kernel_vs_plain(cuda_device, B, S, H, D, dtype, chunk):
     torch.cuda.synchronize()
     assert wkvk.launches == before + 1
     want = ref.wkv6_chunked_ref(r, k, v, w, u, chunk=chunk)
+    assert got.dtype == r.dtype and got.shape == r.shape
+    assert _rel(got, want) < SCAN_REL[dtype]
+
+
+@pytest.mark.parametrize("B,S,H,D,dtype", [
+    (4, 512, 40, 64, "bfloat16"),   # rwkv6-3b's prefill shape
+    (2, 1, 4, 64, "bfloat16"),
+    (2, 15, 4, 64, "bfloat16"),     # one ragged sub-tile
+    (2, 17, 4, 64, "bfloat16"),     # a full sub-tile and one row
+    (1, 77, 40, 64, "bfloat16"),
+    (2, 50, 4, 16, "float32"),
+    (2, 50, 4, 32, "float32"),
+])
+def test_wkv6_kernel_strong_decays(cuda_device, B, S, H, D, dtype):
+    r, k, v, w, u = _wkv_inputs(cuda_device, dtype, B, S, H, D, strong=True)
+    assert float(w.min()) < 1e-12
+    got = wkvk.wkv6_scan(r, k, v, w, u, chunk=S)
+    # the sequential oracle: the chunked form's long cumsums lose ~1e-4 to
+    # cancellation under such decays
+    want = ref.wkv6_scan_ref(r, k, v, w, u)
     assert got.dtype == r.dtype and got.shape == r.shape
     assert _rel(got, want) < SCAN_REL[dtype]
 
