@@ -8,7 +8,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   2. build: every CUDA source under src/repro_torch/kernels/csrc with nvcc
      for sm_90a, into build/ (flash_attention, wkv6_scan, ssd_scan); then
      the tensor-core instructions of each kernel function (cuobjdump -sass),
-     which every bf16 flash and WKV6 instance must have;
+     which every bf16 flash, WKV6 and SSD instance must have;
   3. each kernel against its plain PyTorch version on the card, at the
      main paths' shapes and the edge cases, with the tolerance stated, and
      device times of kernel, plain version and PyTorch's own call (where
@@ -107,16 +107,25 @@ WKV_SHAPES = [
     ("strong_B1_H40", 1, 77, 40, 64, "strong", BF16, 77),
 ]
 WKV_MAIN = ("rwkv6_prefill_512", "rwkv6_prefill_200", "rwkv6_prefill_32")
-# (name, B, S, H, P, N, dtype, chunk): zamba2-1.2b's prefills (H=64,
-# P=N=64, chunk min(256, S)), then the edge cases
+# (name, B, S, H, P, N, decay, dtype, chunk): zamba2-1.2b's prefills (H=64,
+# P=N=64, chunk min(256, S)), then the edge cases.  decay "normal": dt =
+# softplus(N(0,1)) / 2, A = -exp(N(0,1)); "strong": dt = softplus(N(0,1)),
+# A = -exp(N(1.5,1)), about e^-3 a step, held to the sequential oracle (the
+# chunked form's long cumsums cancel in their differences).
 SSD_SHAPES = [
-    ("zamba2_prefill_512", 4, 512, 64, 64, 64, BF16, 256),
-    ("zamba2_prefill_200", 4, 200, 64, 64, 64, BF16, 200),
-    ("zamba2_prefill_32", 4, 32, 64, 64, 64, BF16, 32),
-    ("f32_P64", 2, 256, 8, 64, 64, F32, 128),
-    ("f32_P16_N16", 2, 128, 4, 16, 16, F32, 64),
-    ("f32_P32_N128_ragged", 1, 100, 4, 32, 128, F32, 100),
-    ("bf16_B1_ragged", 1, 77, 64, 64, 64, BF16, 77),
+    ("zamba2_prefill_512", 4, 512, 64, 64, 64, "normal", BF16, 256),
+    ("zamba2_prefill_200", 4, 200, 64, 64, 64, "normal", BF16, 200),
+    ("zamba2_prefill_32", 4, 32, 64, 64, 64, "normal", BF16, 32),
+    ("f32_P64", 2, 256, 8, 64, 64, "normal", F32, 128),
+    ("f32_P16_N16", 2, 128, 4, 16, 16, "normal", F32, 64),
+    ("f32_P32_N128_ragged", 1, 100, 4, 32, 128, "normal", F32, 100),
+    ("bf16_B1_ragged", 1, 77, 64, 64, 64, "normal", BF16, 77),
+    # bf16 on the tensor cores: every P and N split and ragged edge
+    ("bf16_P16_N16", 2, 128, 4, 16, 16, "normal", BF16, 64),
+    ("bf16_P32_N128_ragged", 1, 100, 4, 32, 128, "normal", BF16, 100),
+    ("bf16_S1", 2, 1, 64, 64, 64, "normal", BF16, 1),
+    ("bf16_S65", 2, 65, 64, 64, 64, "normal", BF16, 65),
+    ("strong_zamba2_512", 4, 512, 64, 64, 64, "strong", BF16, 256),
 ]
 SSD_MAIN = ("zamba2_prefill_512", "zamba2_prefill_200", "zamba2_prefill_32")
 # float32-compute serve run against its plain run: rounding only
@@ -244,8 +253,8 @@ def phase_build():
 def phase_sass():
     """Tensor-core instructions (HMMA, HGMMA) per kernel function of each
     built library, read from ``cuobjdump -sass``.  Every bf16 instance of
-    the flash and WKV6 kernels must have some: their products run on the
-    tensor cores."""
+    the three kernels must have some: their products run on the tensor
+    cores (4 flash head dims, 3 WKV head dims, 3 x 4 SSD P and N)."""
     nvcc = env.nvcc_path()
     tool = shutil.which("cuobjdump") or (
         os.path.join(os.path.dirname(nvcc), "cuobjdump") if nvcc else None)
@@ -266,10 +275,11 @@ def phase_sass():
                 counts[fn] += 1
     say("sass", tensor_core_instructions=counts)
     bf16 = [fn for fn in counts if "flash_fwd_bf16" in fn
-            or ("wkv6_kernel" in fn and "bfloat16" in fn)]
-    if len(bf16) != 7 or not all(counts[fn] for fn in bf16):
-        raise RuntimeError(f"bf16 flash / WKV6 instances without tensor-core "
-                           f"instructions: {counts}")
+            or ("wkv6_kernel" in fn and "bfloat16" in fn)
+            or "ssd_tc_kernel" in fn]
+    if len(bf16) != 19 or not all(counts[fn] for fn in bf16):
+        raise RuntimeError(f"bf16 flash / WKV6 / SSD instances without "
+                           f"tensor-core instructions: {counts}")
 
 
 def phase_flash(dev):
@@ -365,11 +375,14 @@ def wkv_inputs(gen, dev, B, S, H, D, decay, dt):
     return r, k, v, w, u
 
 
-def ssd_inputs(gen, dev, B, S, H, P, N, dt):
+def ssd_inputs(gen, dev, B, S, H, P, N, decay, dt):
+    strong = decay == "strong"
     x = torch.randn(B, S, H, P, generator=gen, device=dev).to(dt)
     dtv = torch.nn.functional.softplus(
-        torch.randn(B, S, H, generator=gen, device=dev)) * 0.5
-    A = -torch.exp(torch.randn(H, generator=gen, device=dev))
+        torch.randn(B, S, H, generator=gen, device=dev))
+    dtv = dtv if strong else dtv * 0.5
+    A = -torch.exp(torch.randn(H, generator=gen, device=dev)
+                   + (1.5 if strong else 0.0))
     Bm = torch.randn(B, S, N, generator=gen, device=dev).to(dt)
     Cm = torch.randn(B, S, N, generator=gen, device=dev).to(dt)
     return x, dtv, A, Bm, Cm
@@ -377,14 +390,15 @@ def ssd_inputs(gen, dev, B, S, H, P, N, dt):
 
 def phase_scan(dev, name, mod, plain, shapes, main, make, work):
     """One scan kernel against its plain version at every shape, timed at
-    the main path's shapes."""
+    the main path's shapes.  ``plain`` maps each shape's decay kind (the
+    last of its dims) to the plain version it is held to."""
     gen = torch.Generator(device=dev).manual_seed(0)
     errs, timing = {}, {}
     for shape, *dims, dt, chunk in shapes:
         args = make(gen, dev, *dims, dt)
         got = getattr(mod, name)(*args, chunk=chunk)
         torch.cuda.synchronize()
-        want = plain(*args, chunk=chunk)
+        want = plain[dims[-1]](*args, chunk=chunk)
         err = float((got.float() - want.float()).abs().max())
         rel = err / float(want.float().abs().max())
         ok = bool(torch.isfinite(got.float()).all() and rel < SCAN_REL[dt])
@@ -398,7 +412,8 @@ def phase_scan(dev, name, mod, plain, shapes, main, make, work):
         if shape in main:
             t = timing[shape] = {
                 "ms": device_ms(lambda: getattr(mod, name)(*args, chunk=chunk)),
-                "plain_ms": device_ms(lambda: plain(*args, chunk=chunk)),
+                "plain_ms": device_ms(
+                    lambda: plain[dims[-1]](*args, chunk=chunk)),
                 "library_ms": None,  # no one PyTorch call computes the scan
                 **work(*args)}
             t["kernel_over_bound"] = t["ms"] / t["bound_ms"]
@@ -535,10 +550,12 @@ def main() -> int:
     timing["flash_attention"] = t["jag_prefill_512"]
     main_shapes = {"flash_attention": MAIN_PATH}
     for name, mod, plain, shapes, main_, make, work in (
-            ("wkv6_scan", wkvk, ref.wkv6_chunked_ref, WKV_SHAPES, WKV_MAIN,
-             wkv_inputs, wkv_work),
-            ("ssd_scan", ssdk, ref.ssd_chunked_ref, SSD_SHAPES, SSD_MAIN,
-             ssd_inputs, ssd_work)):
+            ("wkv6_scan", wkvk, {"sigmoid": ref.wkv6_chunked_ref,
+                                 "strong": ref.wkv6_chunked_ref},
+             WKV_SHAPES, WKV_MAIN, wkv_inputs, wkv_work),
+            ("ssd_scan", ssdk, {"normal": ref.ssd_chunked_ref,
+                                "strong": ref.ssd_scan_ref},
+             SSD_SHAPES, SSD_MAIN, ssd_inputs, ssd_work)):
         errs[name], t = phase_scan(dev, name, mod, plain, shapes, main_, make,
                                    work)
         timing[name] = t[main_[0]]

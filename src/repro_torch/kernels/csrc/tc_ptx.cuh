@@ -1,5 +1,5 @@
 // Inline-PTX building blocks of the tensor-core kernels (sm_80 and later,
-// built here for sm_90a): 16-byte cp.async copies into shared memory,
+// built here for sm_90a): 16- and 4-byte cp.async copies into shared memory,
 // ldmatrix loads of 8x8 bf16 blocks, and the warp-level bf16 product
 // mma.sync.m16n8k16 with fp32 accumulators.
 //
@@ -29,6 +29,17 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool pred) {
   const int n = pred ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+// 4 bytes global -> shared (through L1), zero-filled when pred is false:
+// for strided scalars such as one head's dt.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  const int n = pred ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(n)
                : "memory");

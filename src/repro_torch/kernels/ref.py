@@ -18,8 +18,9 @@ The scans follow the reference function for function: ``ssd_scan_ref`` and
 compute, and their yardsticks on the card; ``wkv6_blocked_ref`` is the
 factored form with the reference's bf16 casts and clamps (the CPU path of
 ``wkv_impl="blocked"``); ``wkv6_subtile_ref`` mirrors the WKV kernel's
-16-row chunks and split bf16 products; the ``*_decode_ref`` functions are one
-decode step, plain on every device as in the reference.  The two mirrors
+16-row chunks and split bf16 products, ``ssd_subtile_ref`` the SSD kernel's
+64-row tiles and split products; the ``*_decode_ref`` functions are one
+decode step, plain on every device as in the reference.  The three mirrors
 are for tests only: no served path calls them.
 """
 from __future__ import annotations
@@ -223,6 +224,41 @@ def ssd_chunked_ref(x, dt, A, B_, C, *, chunk=64):
     y_inter = torch.einsum("bcth,bctn,bchpn->bcthp", torch.exp(acs), Cf, h_in)
     y = (y_intra + y_inter).reshape(Bb, S, H, P)
     return y.to(x.dtype)
+
+
+def ssd_subtile_ref(x, dt, A, B_, C, *, tile=64):
+    """Plain mirror of the bf16 SSD kernel's design: the chunked algorithm
+    at tiles of ``tile`` rows (a ragged last one cut, so any S), with the
+    kernel's rounding points: W·x, C·hᵀ and the state update xᵀ·(tail·B)
+    are split products in x's dtype (``_split_einsum``; x, B and C are exact
+    in it, so each is hi·b + lo·b), exp(acs_t) scales C·hᵀ after the product,
+    and the state is decayed and summed in float32.  For float32 inputs
+    nothing is rounded.  No served path calls it."""
+    Bb, S, H, P = x.shape
+    N = B_.shape[-1]
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    Bf, Cf = B_.float(), C.float()
+    h = torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for t0 in range(0, S, tile):
+        xs, ds, bs, cs = (v[:, t0:t0 + tile] for v in (xf, dtf, Bf, Cf))
+        n = xs.shape[1]
+        acs = torch.cumsum(Af * ds, dim=1)  # (B,n,H)
+        acs_h = acs.transpose(1, 2)  # (B,H,n)
+        causal = torch.tril(torch.ones((n, n), dtype=torch.bool,
+                                       device=x.device))
+        decay = torch.exp(torch.where(
+            causal, acs_h[..., :, None] - acs_h[..., None, :], -torch.inf))
+        w = torch.einsum("btn,bsn->bts", cs, bs)[:, None] * decay \
+            * ds.transpose(1, 2)[:, :, None, :]  # (B,H,t,s)
+        y = _split_einsum("bhts,bshp->bthp", w, xs, x.dtype) \
+            + torch.exp(acs)[..., None] * _split_einsum(
+                "btn,bhpn->bthp", cs, h, x.dtype)
+        tail = torch.exp(acs[:, -1:] - acs) * ds  # (B,n,H)
+        h = h * torch.exp(acs[:, -1])[..., None, None] + _split_einsum(
+            "bshp,bshn->bhpn", xs, tail[..., None] * bs[:, :, None], x.dtype)
+        ys.append(y)
+    return torch.cat(ys, dim=1).to(x.dtype)
 
 
 def ssd_decode_ref(h, x, dt, A, B_, C):

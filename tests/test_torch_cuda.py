@@ -119,12 +119,16 @@ def _wkv_inputs(dev, dtype, B, S, H, D, seed=2, strong=False):
     return r, k, v, w, u
 
 
-def _ssd_inputs(dev, dtype, B, S, H, P, N, seed=3):
+def _ssd_inputs(dev, dtype, B, S, H, P, N, seed=3, strong=False):
+    """``strong``: dt = softplus(N(0,1)) and A = -exp(N(1.5,1)), about e^-3
+    a step, where acs differences cancel."""
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.standard_normal((B, S, H, P), dtype=np.float32))
     dt = torch.nn.functional.softplus(torch.from_numpy(
-        rng.standard_normal((B, S, H), dtype=np.float32))) * 0.5
-    A = -torch.exp(torch.from_numpy(rng.standard_normal(H, dtype=np.float32)))
+        rng.standard_normal((B, S, H), dtype=np.float32)))
+    dt = dt if strong else dt * 0.5
+    A = -torch.exp(torch.from_numpy(rng.standard_normal(H, dtype=np.float32))
+                   + (1.5 if strong else 0.0))
     Bm = torch.from_numpy(rng.standard_normal((B, S, N), dtype=np.float32))
     Cm = torch.from_numpy(rng.standard_normal((B, S, N), dtype=np.float32))
     return (x.to(dev, TDT[dtype]), dt.to(dev), A.to(dev), Bm.to(dev, TDT[dtype]),
@@ -177,6 +181,11 @@ def test_wkv6_kernel_strong_decays(cuda_device, B, S, H, D, dtype):
     (2, 128, 4, 64, 64, "float32", 128),
     (1, 96, 3, 16, 16, "float32", 32),
     (2, 100, 4, 32, 128, "float32", 100),
+    # bf16 on the tensor cores: every P and N split and ragged edge
+    (2, 128, 4, 16, 16, "bfloat16", 64),
+    (1, 100, 4, 32, 128, "bfloat16", 100),
+    (2, 1, 64, 64, 64, "bfloat16", 1),
+    (2, 65, 64, 64, 64, "bfloat16", 65),
 ])
 def test_ssd_kernel_vs_plain(cuda_device, B, S, H, P, N, dtype, chunk):
     x, dt, A, Bm, Cm = _ssd_inputs(cuda_device, dtype, B, S, H, P, N)
@@ -185,6 +194,22 @@ def test_ssd_kernel_vs_plain(cuda_device, B, S, H, P, N, dtype, chunk):
     torch.cuda.synchronize()
     assert ssdk.launches == before + 1
     want = ref.ssd_chunked_ref(x, dt, A, Bm, Cm, chunk=chunk)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    assert _rel(got, want) < SCAN_REL[dtype]
+
+
+@pytest.mark.parametrize("B,S,H,P,N,dtype", [
+    (4, 512, 64, 64, 64, "bfloat16"),   # zamba2-1.2b's prefill shape
+    (2, 65, 4, 64, 64, "bfloat16"),
+    (2, 50, 4, 16, 32, "float32"),
+])
+def test_ssd_kernel_strong_decays(cuda_device, B, S, H, P, N, dtype):
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda_device, dtype, B, S, H, P, N,
+                                   strong=True)
+    got = ssdk.ssd_scan(x, dt, A, Bm, Cm, chunk=S)
+    # the sequential oracle: the chunked form's long cumsums cancel in their
+    # differences under such decays
+    want = ref.ssd_scan_ref(x, dt, A, Bm, Cm)
     assert got.dtype == x.dtype and got.shape == x.shape
     assert _rel(got, want) < SCAN_REL[dtype]
 
@@ -204,6 +229,14 @@ def test_scan_kernels_refuse_what_they_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         ssdk.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A,
                       Bm, Cm, chunk=8)
+    # the bf16 kernel copies 16-byte chunks: a contiguous view at an odd
+    # offset is refused by the launch, not read out of line
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda_device, "bfloat16", 1, 8, 2, 64, 16)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype,
+                          device=cuda_device)[1:].view_as(x)
+    shifted.copy_(x)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        ssdk.ssd_scan(shifted, dt, A, Bm, Cm, chunk=8)
 
 
 @pytest.mark.parametrize("arch,n_repeat", [("rwkv6-3b", 2), ("zamba2-1.2b", 1)])

@@ -1,12 +1,14 @@
 """The rounding points of the port's tensor-core kernel designs, on the CPU.
 
-``ref.flash_attention_tc_ref`` and ``ref.wkv6_subtile_ref`` mirror where the
-bf16 CUDA kernels round (logits scaled after the product and P in bf16 for
-flash attention; 16-row chunks with bf16 operands and a float32 state for
-WKV6).  Here they are held against the JAX Pallas kernels in interpret mode
-(as tests/test_torch_kernels.py and tests/test_torch_scans.py run them) at
-rel 1e-2 in bf16, and, where nothing is rounded (float32 inputs), against
-the port's existing plain versions to float32 rounding.  The kernels
+``ref.flash_attention_tc_ref``, ``ref.wkv6_subtile_ref`` and
+``ref.ssd_subtile_ref`` mirror where the bf16 CUDA kernels round (logits
+scaled after the product and P in bf16 for flash attention; 16-row chunks
+for WKV6 and 64-row tiles for the SSD scan, with split bf16 operands and a
+float32 state).  Here they are held against the JAX Pallas kernels in
+interpret mode (as tests/test_torch_kernels.py and tests/test_torch_scans.py
+run them) at rel 1e-2 in bf16, and, where nothing is rounded (float32
+inputs), against the port's existing plain versions to float32 rounding, or
+under strong decays the sequential oracles.  The kernels
 themselves are held to these plain versions on the card by
 tests/test_torch_cuda.py and chip_smoke.py.
 """
@@ -16,6 +18,7 @@ import pytest
 import torch
 
 from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro.kernels.ssd_scan import ssd_scan as jax_ssd
 from repro.kernels.wkv6_scan import wkv6_scan as jax_wkv6
 from repro_torch.kernels import ref
 
@@ -150,3 +153,72 @@ def test_wkv_subtile_mirror_bf16_state_at_rwkv6_3b_prefill():
         print(f"wkv6_subtile_ref bf16 vs float32 oracle, 4x512x40x64, "
               f"strong={strong}: rel {err:.3e}")
         assert err < BF16_REL
+
+
+def ssd_inputs(seed, B, S, H, P, N, strong=False):
+    """``strong``: A = -exp(N(1.5, 1)) and dt = softplus(N(0, 1)), a decay
+    of about e^-3 a step, so acs reaches -100s within a tile and its
+    differences cancel."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, H, P), dtype=np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H), dtype=np.float32)))
+    A = -np.exp(rng.standard_normal(H, dtype=np.float32)
+                + (1.5 if strong else 0.0))
+    Bm = rng.standard_normal((B, S, N), dtype=np.float32)
+    Cm = rng.standard_normal((B, S, N), dtype=np.float32)
+    return x, (dt if strong else dt * 0.5).astype(np.float32), \
+        A.astype(np.float32), Bm, Cm
+
+
+SSD_DTYPES = ["bfloat16", "float32", "float32", "bfloat16", "bfloat16"]
+# (B, S, H, P, N, chunk): chunk is the Pallas kernel's; the mirror's tiles
+# are 64 rows whatever it is
+SSD_CASES = [(2, 64, 3, 16, 16, 16), (1, 128, 2, 32, 32, 32),
+             (2, 96, 4, 16, 64, 48), (1, 192, 2, 64, 16, 64),
+             (1, 128, 2, 32, 128, 128)]
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_CASES)
+def test_ssd_subtile_mirror_vs_pallas_interpret_bf16(B, S, H, P, N, chunk):
+    j, t = both(ssd_inputs(B * S + N, B, S, H, P, N), SSD_DTYPES)
+    want = jax_ssd(*j, chunk=chunk, interpret=True)
+    got = ref.ssd_subtile_ref(*t)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, S, H, P)
+    assert rel(got, want) < BF16_REL
+
+
+@pytest.mark.parametrize("strong", [False, True])
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_CASES)
+def test_ssd_subtile_mirror_equals_plain_in_float32(B, S, H, P, N, chunk,
+                                                    strong):
+    """Against the chunked plain version or, under strong decays, the
+    sequential oracle: there the chunked form's cumsums over long chunks
+    cancel in their differences."""
+    _, t = both(ssd_inputs(11 + S, B, S, H, P, N, strong), ["float32"] * 5)
+    want = (ref.ssd_scan_ref(*t) if strong
+            else ref.ssd_chunked_ref(*t, chunk=chunk))
+    assert rel(ref.ssd_subtile_ref(*t), want) < F32_REL
+
+
+@pytest.mark.parametrize("S", [1, 65, 200])
+def test_ssd_subtile_mirror_takes_ragged_sequences(S):
+    """A ragged last tile is cut to the rows that exist: the result equals
+    the sequential oracle on the same rows."""
+    _, t = both(ssd_inputs(S, 2, S, 3, 16, 32), ["float32"] * 5)
+    assert rel(ref.ssd_subtile_ref(*t), ref.ssd_scan_ref(*t)) < F32_REL
+
+
+@pytest.mark.parametrize("strong", [False, True])
+def test_ssd_subtile_mirror_bf16_at_zamba2_prefill(strong):
+    """zamba2-1.2b's 512 prefill (B=4, H=64, P=N=64): the split bf16
+    operands and the split copy of the state stay inside the card's bar
+    against the float32 sequential oracle on the same inputs.  A CPU check
+    of the design (``-s`` prints the errors), not a card number."""
+    _, t = both(ssd_inputs(17, 4, 512, 64, 64, 64, strong), SSD_DTYPES)
+    got = ref.ssd_subtile_ref(*t)
+    x, dt, A, Bm, Cm = t
+    want = ref.ssd_scan_ref(x.float(), dt, A, Bm.float(), Cm.float())
+    err = rel(got, want)
+    print(f"ssd_subtile_ref bf16 vs float32 oracle, 4x512x64x64x64, "
+          f"strong={strong}: rel {err:.3e}")
+    assert err < BF16_REL
