@@ -19,7 +19,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      count is set to 0 just before each model's run and read just after;
      the counts must be exact (jag 12 flash; rwkv6-3b 96 WKV; zamba2 99 SSD
      and 15 flash), and the first-token logits are held against a run of
-     the plain versions.
+     the plain versions;
+  5. merlin: the Merlin loop as ``python -m repro_torch.launch.quickstart``
+     runs it: 512 JAG samples through MerlinRuntime and a WorkerPool of 4
+     workers, one CUDA graph a bucket in the EnsembleExecutor, into a
+     Bundler; a 3-member surrogate (400 steps) on half the rows must reach
+     R^2 >= 0.9 on the other half, every sample must be bundled and the
+     captures stay within len(bucket_schedule(64)).  The same study on the
+     CPU in this process must give the same bundles (row-rel 1e-4, NaNs and
+     ``failed`` equal), and a surrogate trained on the CPU from the same
+     init the same predictions (1e-3).  Then run_bundle throughput for JAG
+     and SEIR at 1,024, 16,384 and 131,072 samples (device ms of one graph
+     replay, host wall of the blocking call) and the surrogate's training
+     time at 4,096 rows x 3 members x 400 steps.  This path runs none of
+     the CUDA kernels above; their counts are read around it all the same.
 The last line is {"ok": true, "device": {...}}.  Without a card, or without
 the rest of the repository beside it, the script exits non-zero before it.
 """
@@ -48,6 +61,11 @@ from repro_torch.kernels import ssd_scan as ssdk  # noqa: E402
 from repro_torch.kernels import wkv6_scan as wkvk  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
+from repro_torch.core import active  # noqa: E402
+from repro_torch.data.pipeline import regression_dataset  # noqa: E402
+from repro_torch.core import ensemble as ens  # noqa: E402
+from repro_torch.launch import quickstart  # noqa: E402
+from repro_torch.sim import jag_simulate, seir_simulate  # noqa: E402
 
 # H100 SXM data-sheet peaks (dense): HBM3 bytes/s, bf16 tensor-core FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
@@ -529,6 +547,134 @@ def phase_serve(dev, arch):
     return launches
 
 
+MERLIN_SAMPLES = 512
+MERLIN_R2 = 0.9
+MERLIN_BUNDLE_REL = 1e-4      # card bundles against the CPU port's, per row
+MERLIN_PREDICT_REL = 1e-3     # surrogate predictions, card against CPU
+THROUGHPUT_SAMPLES = (1024, 16384, 131072)
+
+
+def _row_rel(got, want):
+    """max |got - want| / max |want| over each row of two (n, ...) arrays,
+    the worst row; NaNs must sit at the same places."""
+    g = got.reshape(len(got), -1).astype("float64")
+    w = want.reshape(len(want), -1).astype("float64")
+    nan_g, nan_w = g != g, w != w
+    if (nan_g != nan_w).any():
+        raise RuntimeError("NaNs at other places")
+    diff = abs(g - w)
+    diff[nan_w] = 0.0
+    w = abs(w)
+    w[nan_w] = 0.0
+    num, den = diff.max(1), w.max(1)
+    rel = num / den.clip(min=1e-300)
+    rel[num == 0] = 0.0
+    return float(rel.max())
+
+
+def _sorted_rows(data):
+    order = data["_sample_ids"].argsort()
+    return {k: v[order] for k, v in data.items()}
+
+
+def phase_merlin(dev):
+    """The Merlin loop on the card; raises on any miss."""
+    for mod in KERNELS.values():
+        mod.launches = 0
+    card, data, sur = quickstart.run_study(dev, samples=MERLIN_SAMPLES)
+    launches = _launches()
+    bound = len(ens.bucket_schedule(quickstart.BUNDLE))
+    ids = sorted(int(i) for i in data["_sample_ids"])
+    say("merlin_study", **card, kernel_launches=launches,
+        capture_bound=bound, r2_min=MERLIN_R2,
+        measured_on=torch.cuda.get_device_name(0),
+        nvidia_smi=env.nvidia_smi_line())
+    if ids != list(range(MERLIN_SAMPLES)):
+        raise RuntimeError(f"{len(ids)} of {MERLIN_SAMPLES} samples bundled")
+    if not card["r2"] >= MERLIN_R2:
+        raise RuntimeError(f"surrogate R^2 {card['r2']} < {MERLIN_R2}")
+    if not 1 <= card["captures"] <= bound:
+        raise RuntimeError(f"{card['captures']} graph captures, bound {bound}")
+
+    cpu, data_cpu, _ = quickstart.run_study("cpu", samples=MERLIN_SAMPLES)
+    a, b = _sorted_rows(data), _sorted_rows(data_cpu)
+    if set(a) != set(b):
+        raise RuntimeError(f"bundle keys {sorted(a)} != {sorted(b)}")
+    rels = {k: _row_rel(a[k], b[k]) for k in sorted(a)}
+    if not (a["failed"] == b["failed"]).all():
+        raise RuntimeError("failed flags differ between card and CPU")
+    bad = {k: r for k, r in rels.items() if not r <= MERLIN_BUNDLE_REL}
+    if bad:
+        raise RuntimeError(f"card bundles differ from the CPU's: {bad}")
+    X, y = regression_dataset(data, target="yield")
+    half = len(X) // 2
+    sur_cpu = active.train_surrogate(X[:half], y[:half],
+                                     steps=quickstart.STEPS, device="cpu")
+    mu, sd = sur.predict(X[half:])
+    mu_c, sd_c = sur_cpu.predict(X[half:])
+    scale = float(abs(mu_c).max())
+    pred_rel = float(max(abs(mu - mu_c).max(), abs(sd - sd_c).max()) / scale)
+    say("merlin_parity", bundle_row_rel=rels, bundle_rel_tol=MERLIN_BUNDLE_REL,
+        failed_rows=int(a["failed"].sum()), prediction_rel=pred_rel,
+        prediction_rel_tol=MERLIN_PREDICT_REL, cpu_r2=cpu["r2"],
+        cpu_sim_time=cpu["sim_time"], cpu_surrogate_s=cpu["surrogate_s"])
+    if not pred_rel <= MERLIN_PREDICT_REL:
+        raise RuntimeError(f"card and CPU surrogates differ by {pred_rel}")
+
+    gen = torch.Generator().manual_seed(2)
+    for sim, d in ((jag_simulate, 5), (seir_simulate, 6)):
+        ex = ens.EnsembleExecutor(sim, device=dev)
+        for n in THROUGHPUT_SAMPLES:
+            X = torch.rand(n, d, generator=gen).numpy()
+            out = ex.run_bundle(0, n, X)          # capture, then a warm call
+            if not all(v.shape[0] == n for v in out.values()):
+                raise RuntimeError("run_bundle returned the wrong rows")
+            walls = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                ex.run_bundle(0, n, X)
+                walls.append(time.perf_counter() - t0)
+            pending = ex.run_bundle(0, n, X, block=False)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for v in pending.values():
+                v.cpu()
+            host_copy = time.perf_counter() - t0
+            del pending
+            graph = ex.program(n, d).graph
+            reps = 3 if n > 20000 else 10
+            replay = device_ms(graph.replay, rounds=5, reps=reps)
+            wall = statistics.median(walls)
+            out_bytes = sum(v.nbytes for v in out.values())
+            say("merlin_throughput", simulator=sim.__name__, samples=n,
+                samples_per_s=n / wall, wall_s=wall, walls_s=walls,
+                host_copy_s=host_copy,
+                replay_ms=replay, replay_samples_per_s=n / (replay / 1e3),
+                output_bytes=out_bytes,
+                output_gb_per_s=out_bytes / (replay / 1e3) / 1e9,
+                measured_on=torch.cuda.get_device_name(0),
+                nvidia_smi=env.nvidia_smi_line())
+        del ex, out
+        _free()
+
+    rng = torch.Generator().manual_seed(3)
+    Xs = torch.rand(4096, 5, generator=rng).numpy()
+    ys = (Xs[:, 0] ** 2 - 0.5 * Xs[:, 1]).astype("float32")
+    for rows in (256, 4096):
+        active.train_surrogate(Xs[:rows], ys[:rows], steps=5, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        active.train_surrogate(Xs[:rows], ys[:rows], steps=quickstart.STEPS,
+                               device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        say("merlin_surrogate", rows=rows, members=3, hidden=64,
+            steps=quickstart.STEPS, seconds=secs, ms_per_step=secs * 1e3 /
+            quickstart.STEPS, measured_on=torch.cuda.get_device_name(0),
+            nvidia_smi=env.nvidia_smi_line())
+    _free()
+
+
 SOURCES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:26",
     "wkv6_scan": "src/repro/kernels/wkv6_scan.py:18",
@@ -565,6 +711,7 @@ def main() -> int:
     for arch in SERVE:  # each model's counts are read around its own run
         for name, n in phase_serve(dev, arch).items():
             launches[name] += n
+    phase_merlin(dev)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{name}.cu",

@@ -14,6 +14,11 @@ array) and returns the port's ``LM`` holding the same values:
     ``norm1`` the reference gives it, which nothing reads; it is loaded
     like any other leaf, so ``strict=True`` holds both trees to one set of
     names.
+
+``surrogate_from_jax(stacked, device)`` takes the reference's stacked
+deep-ensemble pytree as numpy, ``[{"w": (M, din, dout), "b": (M, dout)},
+...]`` (members on the leading axis), and returns the port's
+``core.active.Surrogate`` holding the same members.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.active import Surrogate
 from repro_torch.models import lm
 
 _TOP = ("embed", "final_norm", "lm_head", "prologue", "blocks", "shared_attn")
@@ -72,3 +78,16 @@ def params_from_jax(tree, cfg: ModelConfig, device="cuda") -> lm.LM:
     model = lm.init_params(cfg, gen, device)
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def surrogate_from_jax(stacked, device="cuda") -> Surrogate:
+    layers = [{"w": _tensor(layer["w"]).to(device),
+               "b": _tensor(layer["b"]).to(device)} for layer in stacked]
+    n_members = layers[0]["w"].shape[0]
+    for i, layer in enumerate(layers):
+        if layer["w"].ndim != 3 or tuple(layer["b"].shape) != (
+                n_members, layer["w"].shape[2]):
+            raise ValueError(f"layer {i}: w {tuple(layer['w'].shape)}, "
+                             f"b {tuple(layer['b'].shape)} are not stacked "
+                             f"over {n_members} members")
+    return Surrogate.from_stacked(layers, n_members)

@@ -1,6 +1,7 @@
 """Tests of the port that need the card: each CUDA kernel (flash attention,
-the WKV6 and SSD scans) against its plain version, and the serving paths
-launching them.  They carry
+the WKV6 and SSD scans) against its plain version, the serving paths
+launching them, and the ensemble executor's CUDA graphs against its CPU
+path.  They carry
 the ``cuda`` marker and skip without a card; on the card run
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -268,3 +269,110 @@ def test_serve_scan_models_launch_kernels_and_match_plain(cuda_device, arch,
     lk, lp = lk.float(), lp.float()
     assert torch.isfinite(lk).all()
     assert float((lk - lp).abs().max() / lp.abs().max()) < 5e-2
+
+
+# ---------------------------------------------------------------------------
+# the ensemble executor: one CUDA graph a bucket
+# ---------------------------------------------------------------------------
+
+def _bundle_rel(got, want):
+    """max |got - want| / max |want| over each row; NaNs must coincide."""
+    g = np.asarray(got, np.float64).reshape(len(got), -1)
+    w = np.asarray(want, np.float64).reshape(len(want), -1)
+    assert np.array_equal(np.isnan(g), np.isnan(w))
+    num = np.nanmax(np.abs(g - w), 1, initial=0.0)
+    den = np.nanmax(np.abs(w), 1, initial=0.0)
+    return float(np.where(num == 0, 0.0,
+                          num / np.where(den == 0, 1e-300, den)).max())
+
+
+@pytest.mark.parametrize("sim_name", ["jag", "seir"])
+def test_graph_executor_matches_cpu_path(cuda_device, sim_name):
+    """Two buckets (a ragged 37 -> 64 and a full 256): the card's replays
+    give the CPU path's outputs at row-rel 1e-4 (SEIR: 1e-3, its float32
+    cancellation in 1 - exp(-force)), NaNs and ``failed`` equal; a second
+    call of a bucket captures nothing new."""
+    from repro_torch.core import ensemble as E
+    from repro_torch.sim import jag_simulate, seir_simulate
+    sim, d, tol = {"jag": (jag_simulate, 5, 1e-4),
+                   "seir": (seir_simulate, 6, 1e-3)}[sim_name]
+    rng = np.random.default_rng(3)
+    gpu = E.EnsembleExecutor(sim, device=cuda_device)
+    cpu = E.EnsembleExecutor(sim, device="cpu")
+    for lo, n in ((5, 37), (100, 256)):
+        block = rng.random((n, d)).astype(np.float32)
+        if sim_name == "jag":
+            block[0] = [0.999, 0.001, 0.5, 0.5, 0.5]
+        before = E.trace_count()
+        got = gpu.run_bundle(lo, lo + n, block)
+        assert E.trace_count() - before == 1
+        again = gpu.run_bundle(lo, lo + n, block)
+        assert E.trace_count() - before == 1
+        want = cpu.run_bundle(lo, lo + n, block)
+        for k in want:
+            assert got[k].shape == want[k].shape, k
+            assert _bundle_rel(got[k], want[k]) <= tol, k
+            np.testing.assert_array_equal(again[k], got[k])
+        if "failed" in want:
+            np.testing.assert_array_equal(got["failed"], want["failed"])
+            assert got["failed"][0] == 1.0
+
+
+def test_deferred_writes_under_four_threads_match_blocking(cuda_device,
+                                                           tmp_path):
+    """Four threads launch bundles of one bucket and write them later: each
+    file equals the blocking path's, so no replay overwrote an output that
+    a pending write had yet to copy."""
+    import threading
+    from repro_torch.core import ensemble as E
+    from repro_torch.core.bundler import Bundler
+    from repro_torch.sim import jag_simulate
+    samples = np.random.default_rng(4).random((32 * 24, 5)).astype(np.float32)
+    spans = [(lo, lo + 24) for lo in range(0, len(samples), 24)]
+    blocking = Bundler(str(tmp_path / "block"))
+    ex = E.EnsembleExecutor(jag_simulate, blocking, device=cuda_device)
+    for lo, hi in spans:
+        ex.run_bundle(lo, hi, samples[lo:hi])
+    deferred = Bundler(str(tmp_path / "defer"))
+    exd = E.EnsembleExecutor(jag_simulate, deferred, device=cuda_device)
+    pending, lock, errors = [], threading.Lock(), []
+
+    def launch(part):
+        try:
+            for lo, hi in part:
+                fin = exd.run_bundle(lo, hi, samples[lo:hi], defer_write=True)
+                with lock:
+                    pending.append(fin)
+        except Exception as e:  # surfaced below
+            errors.append(e)
+    threads = [threading.Thread(target=launch, args=(spans[i::4],))
+               for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors
+    for fin in pending:   # every write after every launch
+        fin()
+    a, b = blocking.load_all(), deferred.load_all()
+    assert list(b["_sample_ids"]) == list(range(len(samples)))
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_surrogate_on_the_card_matches_the_cpu(cuda_device):
+    """One seed, one init: predictions after 400 steps at 1e-3 of the
+    largest magnitude."""
+    from repro_torch.core import active as A
+    rng = np.random.default_rng(5)
+    X = rng.random((300, 5)).astype(np.float32)
+    y = (X[:, 0] ** 2 - 0.5 * X[:, 1] + 0.1 * np.sin(6 * X[:, 2])).astype(
+        np.float32)
+    gpu = A.train_surrogate(X, y, steps=400, device=cuda_device)
+    cpu = A.train_surrogate(X, y, steps=400, device="cpu")
+    grid = rng.random((128, 5)).astype(np.float32)
+    mg, sg = gpu.predict(grid)
+    mc, sc = cpu.predict(grid)
+    scale = np.abs(mc).max()
+    assert np.abs(mg - mc).max() <= 1e-3 * scale
+    assert np.abs(sg - sc).max() <= 1e-3 * scale

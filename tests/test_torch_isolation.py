@@ -26,6 +26,7 @@ leaks = sorted(m for m in sys.modules
 import torch
 from repro_torch import env
 from repro_torch.launch.serve import llm_serve_main
+from repro_torch.launch import quickstart
 raised = {}
 for name, call in [("env.device", lambda: env.device()),
                    ("env.device_cuda", lambda: env.device("cuda")),
@@ -34,7 +35,9 @@ for name, call in [("env.device", lambda: env.device()),
                         "--new-tokens", "2"])),
                    ("llm_serve_main_rwkv6", lambda: llm_serve_main(
                        ["--arch", "rwkv6-3b", "--prompt-len", "8",
-                        "--new-tokens", "2"]))]:
+                        "--new-tokens", "2"])),
+                   ("quickstart", lambda: quickstart.main(
+                       ["--samples", "16"]))]:
     try:
         call()
         raised[name] = None
@@ -63,7 +66,13 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.kernels.wkv6_scan", "repro_torch.kernels.ssd_scan",
                 "repro_torch.models.lm", "repro_torch.models.rwkv",
                 "repro_torch.models.ssm", "repro_torch.serve.engine",
-                "repro_torch.launch.serve", "repro_torch.convert"):
+                "repro_torch.launch.serve", "repro_torch.convert",
+                "repro_torch.core.queue", "repro_torch.core.runtime",
+                "repro_torch.core.engine", "repro_torch.core.worker",
+                "repro_torch.core.ensemble", "repro_torch.core.active",
+                "repro_torch.sim.jag", "repro_torch.sim.epidemic",
+                "repro_torch.sim.nullsim", "repro_torch.data.pipeline",
+                "repro_torch.launch.quickstart"):
         assert mod in res["modules"]
     assert res["cpu_ok"] == "cpu"
     if not res["cuda"]:
