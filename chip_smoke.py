@@ -33,6 +33,34 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      replay, host wall of the blocking call) and the surrogate's training
      time at 4,096 rows x 3 members x 400 steps.  This path runs none of
      the CUDA kernels above; their counts are read around it all the same.
+  6. merlin_net: the quickstart study (512 JAG samples from seed 0, 4
+     workers, bundles of 64) three times: over mem://, over one
+     ``broker-serve`` subprocess on tcp://127.0.0.1 and over two shard
+     subprocesses (``quickstart --two-process`` / ``--sharded``).  Each run
+     bundles 512 of 512 with R^2 >= 0.9, and the three runs' bundles agree
+     at row-rel 1e-6 (NaNs and ``failed`` equal).  The subprocesses are
+     stopped at the end of each run, whatever its result;
+  7. gateway: a SurrogateSnapshot on the card over that study's rows
+     (merlin-serve's defaults: 3 members, hidden 64, 300 steps) behind a
+     SurrogateGateway with its ContinuousBatcher (max_batch_rows 256,
+     max_inflight 64).  16 client threads send 64 /v1/predict requests of
+     1-32 points each over localhost HTTP, plus one /v1/calibrate and one
+     /v1/what-if; halfway through, a new bundle is written and /v1/refresh
+     retrains and captures while the predicts keep coming.  No response
+     may be a 5xx, the version advances by one, and afterwards the
+     predictions agree within 1e-3 with a CPU snapshot over the same rows;
+  8. cascade: ``launch/covid_calibration`` as the example shapes it (3
+     metros, 128 draws, a posterior of 24, 3 scenarios, bundles of 32, 3
+     workers) on the card, then on the CPU with the same observations:
+     calibration bundles at row-rel 3.4e-4, each metro's posterior RMSE
+     within rel 1e-3, and on the card strong NPIs lower the median peak;
+  9. icf: ``launch/icf_ensemble`` at 10,000 samples with 30 % worker deaths
+     and crawl-and-resubmit passes: 10,000 of 10,000 on disk at the end;
+ 10. optimization_loop: ``launch/optimization_loop`` (96 a batch, 4
+     iterations, 3 workers): ``best`` does not go down from the first
+     iteration to the last.
+Phases 6-10 launch none of the three kernels: their counts are set to 0
+before each phase and must read 0 after it.
 The last line is {"ok": true, "device": {...}}.  Without a card, or without
 the rest of the repository beside it, the script exits non-zero before it.
 """
@@ -51,6 +79,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import env  # noqa: E402
@@ -64,7 +93,12 @@ from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.core import active  # noqa: E402
 from repro_torch.data.pipeline import regression_dataset  # noqa: E402
 from repro_torch.core import ensemble as ens  # noqa: E402
+from repro_torch.core.bundler import Bundler  # noqa: E402
+from repro_torch.launch import covid_calibration  # noqa: E402
+from repro_torch.launch import icf_ensemble  # noqa: E402
+from repro_torch.launch import optimization_loop  # noqa: E402
 from repro_torch.launch import quickstart  # noqa: E402
+from repro_torch.serve.gateway import SurrogateGateway  # noqa: E402
 from repro_torch.sim import jag_simulate, seir_simulate  # noqa: E402
 
 # H100 SXM data-sheet peaks (dense): HBM3 bytes/s, bf16 tensor-core FLOP/s
@@ -675,6 +709,237 @@ def phase_merlin(dev):
     _free()
 
 
+NET_BUNDLE_REL = 1e-6         # bundles of the three deployments, per row
+GATEWAY_CLIENTS = 16
+GATEWAY_REQUESTS = 64         # a client
+GATEWAY_PREDICT_REL = 1e-3    # after the refresh, card against CPU
+CASCADE_BUNDLE_REL = 3.4e-4   # SEIR's float32 bar (card against CPU)
+CASCADE_RMSE_REL = 1e-3
+
+
+def _zero_launches():
+    for mod in KERNELS.values():
+        mod.launches = 0
+
+
+def _no_launches(phase):
+    got = _launches()
+    if any(got.values()):
+        raise RuntimeError(f"{phase}: kernel launches {got}, expected none")
+    return got
+
+
+def _card():
+    return {"measured_on": torch.cuda.get_device_name(0),
+            "nvidia_smi": env.nvidia_smi_line()}
+
+
+def phase_merlin_net(dev):
+    """The quickstart study over the three deployments; returns the
+    in-process run's archive (the gateway phase serves it)."""
+    runs = {}
+    for mode in ("mem", "tcp", "sharded"):
+        _zero_launches()
+        summary, data, _ = quickstart.run_study(dev, samples=MERLIN_SAMPLES,
+                                                broker_mode=mode)
+        launches = _no_launches(f"merlin_net {mode}")
+        ids = sorted(int(i) for i in data["_sample_ids"])
+        say("merlin_net", mode=mode, **summary, kernel_launches=launches,
+            r2_min=MERLIN_R2, **_card())
+        if ids != list(range(MERLIN_SAMPLES)):
+            raise RuntimeError(f"{mode}: {len(ids)} of {MERLIN_SAMPLES} "
+                               "samples bundled")
+        if not summary["r2"] >= MERLIN_R2:
+            raise RuntimeError(f"{mode}: surrogate R^2 {summary['r2']}")
+        runs[mode] = _sorted_rows(data)
+    base = runs["mem"]
+    rels = {}
+    for mode in ("tcp", "sharded"):
+        other = runs[mode]
+        if set(other) != set(base):
+            raise RuntimeError(f"{mode}: bundle keys {sorted(other)}")
+        if not (other["failed"] == base["failed"]).all():
+            raise RuntimeError(f"{mode}: failed flags differ from mem://")
+        rels[mode] = {k: _row_rel(other[k], base[k]) for k in sorted(base)}
+        bad = {k: r for k, r in rels[mode].items() if not r <= NET_BUNDLE_REL}
+        if bad:
+            raise RuntimeError(f"{mode}: bundles differ from mem://: {bad}")
+    say("merlin_net_parity", bundle_row_rel=rels, rel_tol=NET_BUNDLE_REL,
+        failed_rows=int(base["failed"].sum()))
+    return base
+
+
+def _http(conn, method, path, body=None):
+    conn.request(method, path, body=None if body is None else json.dumps(body),
+                 headers={"Content-Type": "application/json"})
+    r = conn.getresponse()
+    return r.status, json.loads(r.read() or b"{}")
+
+
+def phase_gateway(dev, data):
+    """The surrogate gateway on the card under 16 clients, with a refresh
+    (retrain and capture) halfway through."""
+    import http.client
+    import tempfile
+    import threading
+    X, y = regression_dataset(data, target="yield")
+    first = (3 * len(X)) // 4
+    grid = torch.rand(256, X.shape[1],
+                      generator=torch.Generator().manual_seed(4)).numpy()
+    _zero_launches()
+    with tempfile.TemporaryDirectory() as root:
+        Bundler(root).write_bundle(0, first, {"inputs": X[:first],
+                                              "yield": y[:first]})
+        t0 = time.perf_counter()
+        snap = active.SurrogateSnapshot(root, device=dev)
+        build_s = time.perf_counter() - t0
+        gw = SurrogateGateway(snap, max_batch_rows=256, max_inflight=64,
+                              auth_token=None).start()
+        lat, statuses, errors = [], [], []
+        lock = threading.Lock()
+        done = [0]
+        half = threading.Event()
+        total = GATEWAY_CLIENTS * GATEWAY_REQUESTS
+
+        def client(i):
+            rng = torch.Generator().manual_seed(100 + i)
+            conn = http.client.HTTPConnection("127.0.0.1", gw.port,
+                                              timeout=60)
+            try:
+                for _ in range(GATEWAY_REQUESTS):
+                    n = int(torch.randint(1, 33, (1,), generator=rng))
+                    pts = torch.rand(n, X.shape[1], generator=rng).tolist()
+                    t = time.perf_counter()
+                    st, out = _http(conn, "POST", "/v1/predict",
+                                    {"points": pts})
+                    dt = time.perf_counter() - t
+                    with lock:
+                        lat.append(dt)
+                        statuses.append(st)
+                        done[0] += 1
+                        if done[0] >= total // 2:
+                            half.set()
+                    if st == 200 and len(out["mu"]) != n:
+                        raise RuntimeError(f"{len(out['mu'])} of {n} rows")
+            except Exception as e:  # raised below
+                errors.append(e)
+            finally:
+                conn.close()
+        try:
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(GATEWAY_CLIENTS)]
+            for t in threads:
+                t.start()
+            conn = http.client.HTTPConnection("127.0.0.1", gw.port,
+                                              timeout=120)
+            other = [_http(conn, "POST", "/v1/calibrate",
+                           {"target": 0.5, "n_candidates": 256, "top_k": 4}),
+                     _http(conn, "POST", "/v1/what-if",
+                           {"point": [0.5] * X.shape[1], "radius": 0.05,
+                            "n_perturb": 64})]
+            if not half.wait(timeout=300):
+                raise RuntimeError("half of the predicts did not finish")
+            version0 = snap.version
+            Bundler(root).write_bundle(first, len(X), {"inputs": X[first:],
+                                                       "yield": y[first:]})
+            t0 = time.perf_counter()
+            st_refresh, refresh = _http(conn, "POST", "/v1/refresh", {})
+            refresh_s = time.perf_counter() - t0
+            in_flight = GATEWAY_CLIENTS * GATEWAY_REQUESTS - done[0]
+            for t in threads:
+                t.join(timeout=300)
+            st_grid, after = _http(conn, "POST", "/v1/predict",
+                                   {"points": grid.tolist()})
+            conn.close()
+        finally:
+            gw.stop(drain=True, timeout=30)
+        stats = gw.stats()
+        launches = _no_launches("gateway")
+        if errors:
+            raise RuntimeError(f"gateway clients failed: {errors[0]!r}")
+        cpu = active.SurrogateSnapshot(root, device="cpu")
+    mu_c, sd_c = cpu.predict(grid)
+    mu, sd = np.asarray(after["mu"]), np.asarray(after["sigma"])
+    scale = float(abs(mu_c).max())
+    pred_rel = float(max(abs(mu - mu_c).max(), abs(sd - sd_c).max()) / scale)
+    lat_ms = sorted(x * 1e3 for x in lat)
+    said = {st for st in statuses} | {st for st, _ in other} | {
+        st_refresh, st_grid}
+    say("gateway", clients=GATEWAY_CLIENTS, requests=len(lat),
+        predict_p50_ms=statistics.median(lat_ms),
+        predict_p99_ms=lat_ms[int(0.99 * (len(lat_ms) - 1))],
+        predict_max_ms=lat_ms[-1], statuses=sorted(said),
+        batches=stats["batcher"]["batches"],
+        avg_requests_per_batch=stats["batcher"]["avg_requests_per_batch"],
+        snapshot_build_s=build_s, refresh_s=refresh_s, refresh=refresh,
+        predicts_left_at_refresh=in_flight, version_before=version0,
+        version_after=snap.version, rows=snap.rows,
+        prediction_rel_vs_cpu=pred_rel, rel_tol=GATEWAY_PREDICT_REL,
+        http=stats["http"], kernel_launches=launches, **_card())
+    if any(st >= 500 for st in said) or said != {200}:
+        raise RuntimeError(f"gateway statuses {sorted(said)}")
+    if not (refresh.get("refreshed") and snap.version == version0 + 1):
+        raise RuntimeError(f"refresh {refresh}: version {version0} -> "
+                           f"{snap.version}")
+    if len(lat) != GATEWAY_CLIENTS * GATEWAY_REQUESTS:
+        raise RuntimeError(f"{len(lat)} predicts answered")
+    if not pred_rel <= GATEWAY_PREDICT_REL:
+        raise RuntimeError(f"refreshed gateway and CPU snapshot differ by "
+                           f"{pred_rel}")
+
+
+def phase_cascade(dev):
+    """The COVID cascade on the card and on the CPU."""
+    obs = covid_calibration.synth_observations(device=dev)
+    _zero_launches()
+    card, calib = covid_calibration.run_cascade(dev, observed=obs)
+    launches = _no_launches("cascade")
+    cpu, calib_cpu = covid_calibration.run_cascade("cpu", observed=obs)
+    rels, rmse = {}, {}
+    for m in covid_calibration.METROS:
+        a, b = _sorted_rows(calib[m]), _sorted_rows(calib_cpu[m])
+        if list(a["_sample_ids"]) != list(range(covid_calibration.N_CALIB)):
+            raise RuntimeError(f"{m}: {len(a['_sample_ids'])} draws bundled")
+        rels[m] = max(_row_rel(a[k], b[k]) for k in b)
+        rmse[m] = (card[m]["posterior_rmse"], cpu[m]["posterior_rmse"])
+    peaks = {m: {s: card[m][s]["peak_median"] for s in card[m]
+                 if s != "posterior_rmse"} for m in covid_calibration.METROS}
+    say("cascade", wall_s=card["wall_s"], cpu_wall_s=cpu["wall_s"],
+        calib_row_rel=rels, rel_tol=CASCADE_BUNDLE_REL,
+        posterior_rmse_card_cpu=rmse, rmse_rel_tol=CASCADE_RMSE_REL,
+        peak_median=peaks, kernel_launches=launches, **_card())
+    for m in covid_calibration.METROS:
+        if not rels[m] <= CASCADE_BUNDLE_REL:
+            raise RuntimeError(f"{m}: calibration bundles differ by {rels[m]}")
+        a, b = rmse[m]
+        if not abs(a - b) <= CASCADE_RMSE_REL * abs(b):
+            raise RuntimeError(f"{m}: posterior RMSE {a} against {b}")
+        if not peaks[m]["strong_npi"] <= peaks[m]["baseline"] + 1e-6:
+            raise RuntimeError(f"{m}: strong NPIs raise the peak: {peaks[m]}")
+
+
+def phase_icf(dev):
+    _zero_launches()
+    res = icf_ensemble.run_icf(dev, log=lambda line: None)
+    launches = _no_launches("icf")
+    say("icf", **res, paper_failure_pct=0.22, kernel_launches=launches,
+        **_card())
+    n = icf_ensemble.N_SAMPLES
+    if res["on_disk"] != n or res["rows"] != n:
+        raise RuntimeError(f"icf: {res['on_disk']} of {n} on disk")
+
+
+def phase_optimization_loop(dev):
+    _zero_launches()
+    history, wall = optimization_loop.run_loop(dev)
+    launches = _no_launches("optimization_loop")
+    say("optimization_loop", history=history, wall_s=wall,
+        gain=history[-1]["best"] / history[0]["best"],
+        kernel_launches=launches, **_card())
+    if not history[-1]["best"] >= history[0]["best"]:
+        raise RuntimeError(f"best went down: {history}")
+
+
 SOURCES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:26",
     "wkv6_scan": "src/repro/kernels/wkv6_scan.py:18",
@@ -712,6 +977,11 @@ def main() -> int:
         for name, n in phase_serve(dev, arch).items():
             launches[name] += n
     phase_merlin(dev)
+    data = phase_merlin_net(dev)
+    phase_gateway(dev, data)
+    phase_cascade(dev)
+    phase_icf(dev)
+    phase_optimization_loop(dev)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{name}.cu",

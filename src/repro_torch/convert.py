@@ -19,6 +19,11 @@ array) and returns the port's ``LM`` holding the same values:
 deep-ensemble pytree as numpy, ``[{"w": (M, din, dout), "b": (M, dout)},
 ...]`` (members on the leading axis), and returns the port's
 ``core.active.Surrogate`` holding the same members.
+
+``snapshot_from_jax(stacked, root, X=, y=, version=, cursor=, device)``
+wraps those members in the port's ``core.active.SurrogateSnapshot`` over
+the same study directory, with the reference snapshot's rows, version and
+bundle cursor, so that both gateways answer from one model.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.active import Surrogate
+from repro_torch.core.active import Surrogate, SurrogateSnapshot
 from repro_torch.models import lm
 
 _TOP = ("embed", "final_norm", "lm_head", "prologue", "blocks", "shared_attn")
@@ -91,3 +96,19 @@ def surrogate_from_jax(stacked, device="cuda") -> Surrogate:
                              f"b {tuple(layer['b'].shape)} are not stacked "
                              f"over {n_members} members")
     return Surrogate.from_stacked(layers, n_members)
+
+
+def snapshot_from_jax(stacked, root: str, *, X, y, version: int, cursor,
+                      device="cuda", **kw) -> SurrogateSnapshot:
+    """A port ``SurrogateSnapshot`` over the study at ``root`` that serves
+    the reference snapshot's trained members (``stacked`` as numpy, as for
+    ``surrogate_from_jax``) with its rows ``X``, ``y``, its ``version`` and
+    its ``Bundler.load_since`` cursor, so that a later ``refresh()`` reads
+    only bundles the reference had not seen.  ``kw`` are the snapshot's
+    training settings (``n_members``, ``hidden``, ``steps``, ...)."""
+    sur = surrogate_from_jax(stacked, device)
+    state = {"surrogate": sur, "X": np.array(X, np.float32),
+             "y": np.array(y, np.float32), "version": version,
+             "cursor": dict(cursor)}
+    return SurrogateSnapshot(root, n_members=len(sur.params_list),
+                             device=device, state=state, **kw)

@@ -41,6 +41,7 @@ import torch.nn.functional as F
 
 from repro_torch import env
 from repro_torch.core.bundler import Bundler
+from repro_torch.core import ensemble
 from repro_torch.core.ensemble import EnsembleExecutor, bucket_for, pad_rows
 from repro_torch.core.runtime import MerlinRuntime
 from repro_torch.core.spec import Step, StudySpec
@@ -152,14 +153,17 @@ def _fit_members(params0: Stacked, X: torch.Tensor, y: torch.Tensor,
     if X.device.type == "cuda" and steps > 0:
         state = leaves + mom + vel
         start = [t.detach().clone() for t in state]
-        side = torch.cuda.Stream(X.device)
-        side.wait_stream(torch.cuda.current_stream(X.device))
-        with torch.cuda.stream(side):
-            step()  # warm-up: autograd and library state outside capture
-        torch.cuda.current_stream(X.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            step()
+        # the executor's lock serializes every capture in the process (a
+        # gateway's refresh captures while a study's workers capture buckets)
+        with ensemble._GRAPH_LOCK:
+            side = torch.cuda.Stream(X.device)
+            side.wait_stream(torch.cuda.current_stream(X.device))
+            with torch.cuda.stream(side):
+                step()  # warm-up: autograd and library state outside capture
+            torch.cuda.current_stream(X.device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                step()
         with torch.no_grad():  # the warm-up step moved the state: undo it
             for t, t0 in zip(state, start):
                 t.copy_(t0)
@@ -211,7 +215,7 @@ def train_surrogate(X: np.ndarray, y: np.ndarray, n_members: int = 3,
 class SurrogateSnapshot:
     """A resident, reloadable serving view of a study's surrogate ensemble.
 
-    The gateway tier (``repro.serve.gateway`` in the reference) answers
+    The gateway tier (``repro_torch.serve.gateway``) answers
     predict/calibrate/what-if requests against this object: it holds the
     trained :class:`Surrogate` in memory (stacked members on the device) and tracks the study's bundle archive through
     ``Bundler.load_since`` deltas — ``refresh()`` reads only bundles that
@@ -230,7 +234,11 @@ class SurrogateSnapshot:
     def __init__(self, root: str, objective_key: str = "yield",
                  input_key: str = "inputs", n_members: int = 3,
                  hidden: int = 64, steps: int = 300, lr: float = 3e-3,
-                 seed: int = 0, min_new_rows: int = 1, device=None):
+                 seed: int = 0, min_new_rows: int = 1, device=None,
+                 state: Optional[Dict] = None):
+        """``state`` resumes a trained snapshot instead of training one:
+        ``{"surrogate", "X", "y", "version", "cursor"}`` as
+        ``convert.snapshot_from_jax`` builds it from the reference's."""
         self.device = env.device(device)
         self.bundler = Bundler(root)
         self.objective_key = objective_key
@@ -245,7 +253,12 @@ class SurrogateSnapshot:
         self._pending_rows = 0
         self._sur: Optional[Surrogate] = None
         self.version = 0
-        self.refresh()
+        if state is not None:
+            self._sur, self._X, self._y = (state["surrogate"], state["X"],
+                                           state["y"])
+            self.version, self._cursor = int(state["version"]), state["cursor"]
+        else:
+            self.refresh()
         if self._sur is None:
             raise ValueError(
                 f"no training rows under {root!r}: bundles must carry "

@@ -83,7 +83,7 @@ serving-side sibling: instead of leased workflow tasks it batches
 latency-sensitive inference *requests* — admitted continuously at
 power-of-two bucket boundaries, deadline-ordered, with a bounded
 admission queue that sheds load as ``BrokerFull``.  The HTTP gateway
-(``repro.serve.gateway``) fronts it.
+(``repro_torch.serve.gateway``) fronts it.
 """
 from __future__ import annotations
 

@@ -64,8 +64,9 @@ _CACHE_LOCK = threading.Lock()
 _SHARED: "weakref.WeakKeyDictionary[Callable, Dict[Tuple, _Program]]" = \
     weakref.WeakKeyDictionary()
 _TRACE_COUNT = 0
-# serializes every capture, and every (copy in, replay, copy out) of a
-# graph, across the executors and threads of this process
+# serializes every capture (the executors' buckets and the surrogate's Adam
+# step, core/active.py), and every (copy in, replay, copy out) of an
+# executor's graph, across the threads of this process
 _GRAPH_LOCK = threading.RLock()
 
 

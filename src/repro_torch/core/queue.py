@@ -543,10 +543,7 @@ class InMemoryBroker:
     def _forward(self, target: str, tasks: List[Task]) -> None:
         client = self._fwd_clients.get(target)
         if client is None:
-            raise NotImplementedError(
-                f"forwarding to {target!r} needs the networked brokers "
-                "(netbroker, shardbroker), which a later slice of the port "
-                "brings")
+            from repro_torch.core.netbroker import make_broker
             with self._lock:
                 client = self._fwd_clients.get(target)
                 if client is None:
@@ -1142,10 +1139,7 @@ class FileBroker:
     def _forward(self, target: str, tasks: List[Task]) -> None:
         client = self._fwd_clients.get(target)
         if client is None:
-            raise NotImplementedError(
-                f"forwarding to {target!r} needs the networked brokers "
-                "(netbroker, shardbroker), which a later slice of the port "
-                "brings")
+            from repro_torch.core.netbroker import make_broker
             with self._ilock:
                 client = self._fwd_clients.get(target)
                 if client is None:

@@ -33,7 +33,7 @@ from typing import Dict, Optional, Set, Tuple
 
 from repro_torch.core.bundler import Bundler, missing_samples
 from repro_torch.core.queue import (PRIORITY_REAL, BrokerUnavailable, Task,
-                                    new_task)
+                              new_task)
 
 
 @dataclasses.dataclass

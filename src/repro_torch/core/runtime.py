@@ -39,8 +39,7 @@ from repro_torch.core import jsonstore
 from repro_torch.core.dag import DagNode, TaskDag, compile_dag
 from repro_torch.core.handlers import ExecutionHandler, default_handlers
 from repro_torch.core.queue import (PRIORITY_GEN, PRIORITY_REAL, BrokerError,
-                                    FileBroker, InMemoryBroker, Lease, Task,
-                                    new_task)
+                              InMemoryBroker, Lease, Task, new_task)
 from repro_torch.core.resilience import BackoffPolicy
 from repro_torch.core.spec import Step, StudySpec, expand_parameters, substitute
 
@@ -213,17 +212,9 @@ class MerlinRuntime:
         # a shared-directory FileBroker, "mem://" a private InMemoryBroker,
         # "shard://h1:p1,h2:p2" (or a list of tcp:// endpoints) a
         # ShardedBroker federating several BrokerServers by queue name.
-        if isinstance(broker, str) and broker.startswith("mem://"):
-            broker = InMemoryBroker()
-        elif isinstance(broker, str) and broker.startswith("file://") \
-                and broker[len("file://"):]:
-            broker = FileBroker(broker[len("file://"):])
-        elif isinstance(broker, (str, list, tuple)):
-            raise NotImplementedError(
-                f"broker {broker!r}: the networked and sharded brokers "
-                "(tcp://, shard://, shm://, lists of endpoints) come with a "
-                "later slice of the port; use mem://, file://<dir> or a "
-                "Broker instance")
+        if isinstance(broker, (str, list, tuple)):
+            from repro_torch.core.netbroker import make_broker
+            broker = make_broker(broker)
         self.broker = broker if broker is not None else InMemoryBroker()
         self.workspace = workspace
         os.makedirs(workspace, exist_ok=True)

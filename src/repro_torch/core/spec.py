@@ -30,6 +30,8 @@ import dataclasses
 import itertools
 from typing import Any, Dict, List, Optional, Tuple
 
+import yaml
+
 ZIP_SUFFIX = "%zip"
 
 #: Legal per-step ``on_failure`` actions (applied once the retry budget is
@@ -141,7 +143,6 @@ class StudySpec:
 
     @staticmethod
     def from_yaml(text: str) -> "StudySpec":
-        import yaml  # only YAML specs need it
         doc = yaml.safe_load(text)
         if not isinstance(doc, dict):
             raise SpecError("spec document is not a YAML mapping")

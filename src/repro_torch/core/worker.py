@@ -64,7 +64,7 @@ from typing import List, Optional, Sequence
 from repro_torch.core import hierarchy as H
 from repro_torch.core.engine import EngineClosed, ExecutionEngine
 from repro_torch.core.queue import (BrokerError, BrokerFull, Lease, Task,
-                                    dlq_queue_name)
+                              dlq_queue_name)
 from repro_torch.core.resilience import BackoffPolicy, RetryPolicy
 from repro_torch.core.runtime import MerlinRuntime
 

@@ -18,6 +18,8 @@ import threading
 from pathlib import Path
 from typing import Callable, Dict, List
 
+import torch
+
 from repro_torch import env
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -106,3 +108,14 @@ def bind(name: str, entry: str, argtypes) -> Callable[..., None]:
             raise RuntimeError(f"{name} kernel launch failed: "
                                f"{err_str(rc).decode()} (cudaError {rc})")
     return launch
+
+
+def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
+    """The kernels compute the forward only: their output, written through
+    ctypes, carries no ``grad_fn``.  Raise rather than hand back a result
+    whose gradient would silently be lost."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel has no backward yet, and an input "
+            "requires grad; run it under torch.no_grad() or "
+            "torch.inference_mode(), or on the CPU")

@@ -76,6 +76,7 @@ def flash_attention(q, k, v, *, causal=True, scale=None, softcap_val=None,
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {q.device}")
     check_args(q, k, v, softcap_val=softcap_val, window=window, q_pos0=q_pos0)
+    _build.refuse_grad("flash_attention", q, k, v)
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)

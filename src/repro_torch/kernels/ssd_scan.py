@@ -75,6 +75,7 @@ def ssd_scan(x, dt, A, B_, C, *, chunk=128):
     if x.device.type != "cuda":
         raise ValueError(f"no SSD kernel for device {x.device}")
     check_args(x, dt, A, B_, C)
+    _build.refuse_grad("ssd_scan", x, dt, A, B_, C)
     Bb, S, H, P = x.shape
     N = B_.shape[-1]
     launch = _kernel()

@@ -69,6 +69,7 @@ def wkv6_scan(r, k, v, w, u, *, chunk=64):
     if r.device.type != "cuda":
         raise ValueError(f"no WKV6 kernel for device {r.device}")
     check_args(r, k, v, w, u)
+    _build.refuse_grad("wkv6_scan", r, k, v, w, u)
     B, S, H, D = r.shape
     launch = _kernel()
     out = torch.empty_like(r)

@@ -376,3 +376,125 @@ def test_surrogate_on_the_card_matches_the_cpu(cuda_device):
     scale = np.abs(mc).max()
     assert np.abs(mg - mc).max() <= 1e-3 * scale
     assert np.abs(sg - sc).max() <= 1e-3 * scale
+
+
+# ---------------------------------------------------------------------------
+# the kernels have no backward: they refuse an input that requires grad
+# ---------------------------------------------------------------------------
+
+def test_kernel_wrappers_refuse_grad(cuda_device):
+    """Under grad with an input that requires it, each wrapper raises
+    instead of returning an output without ``grad_fn``; under no_grad, or
+    with no input requiring grad, it launches."""
+    q, k, v = _qkv(cuda_device, "bfloat16", 1, 64, 64, 4, 4, 64)
+    r, kw, vw, w, u = _wkv_inputs(cuda_device, "bfloat16", 1, 32, 4, 64)
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda_device, "bfloat16", 1, 32, 4, 64, 64)
+    calls = [(fak, lambda: fak.flash_attention(q, k, v), (q, k, v)),
+             (wkvk, lambda: wkvk.wkv6_scan(r, kw, vw, w, u, chunk=32),
+              (r, kw, vw, w, u)),
+             (ssdk, lambda: ssdk.ssd_scan(x, dt, A, Bm, Cm, chunk=32),
+              (x, dt, A, Bm, Cm))]
+    for mod, call, inputs in calls:
+        for t in inputs:
+            t.requires_grad_(True)
+            before = mod.launches
+            with pytest.raises(RuntimeError, match="no backward"):
+                call()
+            assert mod.launches == before
+            with torch.no_grad():
+                call()
+            with torch.inference_mode():
+                call()
+            assert mod.launches == before + 2
+            t.requires_grad_(False)
+        out = call()
+        assert out.grad_fn is None
+
+
+# ---------------------------------------------------------------------------
+# the Merlin path across threads and processes on the card
+# ---------------------------------------------------------------------------
+
+def test_predicts_run_through_a_refresh_capture(cuda_device, tmp_path):
+    """A refresh retrains and captures its Adam step on one thread while
+    four threads keep predicting on the same card: every prediction equals
+    the old model's or the new one's, some of them ran during the
+    refresh, and the new model predicts what a surrogate trained on the
+    same rows without concurrent predicts does."""
+    import threading
+    from repro_torch.core import active as A
+    from repro_torch.core.bundler import Bundler
+    rng = np.random.default_rng(7)
+    X = rng.random((512, 5)).astype(np.float32)
+    y = (np.sin(3 * X[:, 0]) + X[:, 1] ** 2).astype(np.float32)
+    root = str(tmp_path / "study")
+    Bundler(root).write_bundle(0, 256, {"inputs": X[:256], "yield": y[:256]})
+    snap = A.SurrogateSnapshot(root, device=cuda_device)
+    grid = rng.random((32, 5)).astype(np.float32)
+    old = snap.predict(grid)
+    Bundler(root).write_bundle(256, 512, {"inputs": X[256:],
+                                          "yield": y[256:]})
+    refreshing, stop = threading.Event(), threading.Event()
+    seen, errors = [], []
+
+    def client():
+        try:
+            while not stop.is_set():
+                during = refreshing.is_set()
+                seen.append((snap.predict(grid), during))
+        except Exception as e:  # surfaced below
+            errors.append(e)
+    threads = [threading.Thread(target=client) for _ in range(4)]
+    for t in threads:
+        t.start()
+    try:
+        refreshing.set()
+        assert snap.refresh()
+        refreshing.clear()
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+    assert not errors
+    assert snap.version == 2 and snap.rows == 512
+    new = snap.predict(grid)
+    assert sum(during for _, during in seen) >= 1
+    for (mu, sd), _ in seen:
+        assert any(np.array_equal(mu, m) and np.array_equal(sd, s)
+                   for m, s in (old, new))
+    alone = A.train_surrogate(X, y, device=cuda_device).predict(grid)
+    scale = np.abs(alone[0]).max()
+    assert np.abs(new[0] - alone[0]).max() <= 1e-6 * scale
+    assert np.abs(new[1] - alone[1]).max() <= 1e-6 * scale
+
+
+def test_cascade_on_the_card_matches_the_cpu(cuda_device):
+    """The COVID cascade as the example shapes it, on the card and on the
+    CPU with the same observations: calibration bundles at row-rel 3.4e-4
+    (SEIR's float32 bar), each metro's posterior RMSE within rel 1e-3, and
+    on the card NPIs lower the median peak."""
+    from repro_torch.launch import covid_calibration as cc
+    obs = cc.synth_observations(device="cpu")
+    card, calib = cc.run_cascade(cuda_device, observed=obs)
+    cpu, calib_cpu = cc.run_cascade("cpu", observed=obs)
+    for m in cc.METROS:
+        a, b = calib[m], calib_cpu[m]
+        oa, ob = np.argsort(a["_sample_ids"]), np.argsort(b["_sample_ids"])
+        assert list(a["_sample_ids"][oa]) == list(range(cc.N_CALIB))
+        for key in b:
+            assert _bundle_rel(a[key][oa], b[key][ob]) <= 3.4e-4, (m, key)
+        rmse, rmse_cpu = card[m]["posterior_rmse"], cpu[m]["posterior_rmse"]
+        assert abs(rmse - rmse_cpu) <= 1e-3 * abs(rmse_cpu)
+        assert card[m]["strong_npi"]["peak_median"] <= \
+            card[m]["baseline"]["peak_median"] + 1e-6
+
+
+def test_quickstart_two_process_on_the_card(cuda_device):
+    """``quickstart --two-process``: the study over one broker-serve process
+    on tcp:// bundles 512 of 512 on the card."""
+    from repro_torch.launch import quickstart
+    summary, data, _ = quickstart.run_study(cuda_device, samples=512,
+                                            broker_mode="tcp")
+    assert summary["broker"] == "NetBroker"
+    assert sorted(int(i) for i in data["_sample_ids"]) == list(range(512))
+    assert summary["r2"] >= 0.9

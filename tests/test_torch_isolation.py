@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: importing every ``repro_torch`` module and
 ``chip_smoke.py`` loads neither JAX nor any module of the ``repro`` package,
 and its CUDA entry points raise when no card is visible and the CPU was not
-asked for.  Runs in a fresh interpreter, so nothing the test process already
-imported can hide a leak."""
+asked for, while the host-only CLIs (``broker-serve``, ``merlin-validate``,
+``merlin-status``) run without one.  Runs in a fresh interpreter, so nothing
+the test process already imported can hide a leak."""
 import os
 import subprocess
 import sys
@@ -19,14 +20,16 @@ for name in mods:
 spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
 chip_smoke = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(chip_smoke)
-leaks = sorted(m for m in sys.modules
-               if m == "jax" or m.startswith(("jax.", "jaxlib"))
-               or m == "repro" or m.startswith("repro."))
 
+import contextlib, io, os, tempfile
 import torch
 from repro_torch import env
-from repro_torch.launch.serve import llm_serve_main
-from repro_torch.launch import quickstart
+from repro_torch.launch.serve import (broker_serve_main, llm_serve_main,
+                                      merlin_serve_main, merlin_status_main,
+                                      merlin_validate_main)
+from repro_torch.launch import (covid_calibration, icf_ensemble,
+                                optimization_loop, quickstart)
+study = tempfile.mkdtemp()
 raised = {}
 for name, call in [("env.device", lambda: env.device()),
                    ("env.device_cuda", lambda: env.device("cuda")),
@@ -37,13 +40,36 @@ for name, call in [("env.device", lambda: env.device()),
                        ["--arch", "rwkv6-3b", "--prompt-len", "8",
                         "--new-tokens", "2"])),
                    ("quickstart", lambda: quickstart.main(
-                       ["--samples", "16"]))]:
+                       ["--samples", "16"])),
+                   ("quickstart_two_process", lambda: quickstart.main(
+                       ["--samples", "16", "--two-process"])),
+                   ("merlin_serve_main", lambda: merlin_serve_main(
+                       ["--study", study, "--port-file",
+                        os.path.join(study, "port")])),
+                   ("covid_calibration", lambda: covid_calibration.main([])),
+                   ("optimization_loop", lambda: optimization_loop.main([])),
+                   ("icf_ensemble", lambda: icf_ensemble.main(["16"]))]:
     try:
         call()
         raised[name] = None
     except RuntimeError as e:
         raised[name] = str(e)
+host = {}
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    try:
+        broker_serve_main(["--help"])
+    except SystemExit as e:
+        host["broker_serve_help"] = e.code
+    host["merlin_validate"] = merlin_validate_main(sys.argv[2:])
+    host["merlin_status"] = merlin_status_main(["--broker", "mem://",
+                                                "--json"])
+host["stdout"] = out.getvalue()
+leaks = sorted(m for m in sys.modules
+               if m == "jax" or m.startswith(("jax.", "jaxlib"))
+               or m == "repro" or m.startswith("repro."))
 print(json.dumps({"modules": mods, "leaks": leaks, "raised": raised,
+                  "host": host,
                   "cuda": torch.cuda.is_available(),
                   "cpu_ok": str(env.device("cpu"))}))
 """
@@ -57,7 +83,9 @@ def _env():
 
 def test_port_imports_no_jax_and_no_reference():
     import json
-    out = subprocess.run([sys.executable, "-c", PROBE, str(ROOT / "chip_smoke.py")],
+    specs = sorted(str(p) for p in (ROOT / "examples" / "specs").glob("*.yaml"))
+    out = subprocess.run([sys.executable, "-c", PROBE, str(ROOT / "chip_smoke.py"),
+                          *specs],
                          capture_output=True, text=True, env=_env(), timeout=300)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
@@ -72,8 +100,20 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.core.ensemble", "repro_torch.core.active",
                 "repro_torch.sim.jag", "repro_torch.sim.epidemic",
                 "repro_torch.sim.nullsim", "repro_torch.data.pipeline",
-                "repro_torch.launch.quickstart"):
+                "repro_torch.launch.quickstart",
+                "repro_torch.core.hashring", "repro_torch.core.netbroker",
+                "repro_torch.core.shardbroker", "repro_torch.core.shmring",
+                "repro_torch.core.autoscale", "repro_torch.core.chaos",
+                "repro_torch.core.cascade", "repro_torch.serve.gateway",
+                "repro_torch.launch.covid_calibration",
+                "repro_torch.launch.optimization_loop",
+                "repro_torch.launch.icf_ensemble"):
         assert mod in res["modules"]
+    host = res["host"]
+    assert host["broker_serve_help"] == 0 and "--join" in host["stdout"]
+    assert host["merlin_validate"] == 0
+    assert host["stdout"].count("OK   ") == len(specs) == 3
+    assert host["merlin_status"] is None and '"totals"' in host["stdout"]
     assert res["cpu_ok"] == "cpu"
     if not res["cuda"]:
         for name, msg in res["raised"].items():

@@ -365,19 +365,45 @@ def test_quickstart_shaped_study_on_the_simulators(tmp_path, sim):
         assert _row_rel(data[k][order], v) <= 1e-6, k
 
 
-def test_url_brokers_in_place_and_networked_ones_refused(tmp_path):
+def test_url_brokers_build_the_reference_types(tmp_path):
+    """``MerlinRuntime(broker=URL)`` goes through ``make_broker`` as in the
+    reference: ``mem://`` and ``file://`` in process, ``tcp://`` a
+    ``NetBroker``, ``shard://`` and lists of endpoints a ``ShardedBroker``;
+    ``file://`` with an empty path and unknown schemes raise ValueError,
+    as the reference's do."""
+    from repro.core import netbroker as NB_ref
+    from repro_torch.core import netbroker as NB
+    from repro_torch.core.shardbroker import ShardedBroker
     rt = MerlinRuntime(broker="mem://", workspace=str(tmp_path / "m"))
     assert isinstance(rt.broker, InMemoryBroker)
     rt = MerlinRuntime(broker=f"file://{tmp_path / 'q'}",
                        workspace=str(tmp_path / "f"))
     assert isinstance(rt.broker, FileBroker)
-    for url in ("tcp://127.0.0.1:1", "shard://a:1,b:2",
-                ["tcp://a:1", "tcp://b:2"]):
-        with pytest.raises(NotImplementedError, match="later slice"):
+    servers = [NB.BrokerServer(InMemoryBroker()).start() for _ in range(2)]
+    try:
+        urls = [s.address for s in servers]
+        rt = MerlinRuntime(broker=urls[0], workspace=str(tmp_path / "t"))
+        assert type(rt.broker).__name__ == "NetBroker"
+        assert type(NB_ref.make_broker(urls[0])).__name__ == "NetBroker"
+        hosts = ",".join(u[len("tcp://"):] for u in urls)
+        for url in (f"shard://{hosts}", urls):
+            rt = MerlinRuntime(broker=url, workspace=str(tmp_path / "s"))
+            assert isinstance(rt.broker, ShardedBroker)
+            assert type(NB_ref.make_broker(url)).__name__ == "ShardedBroker"
+            b = rt.broker
+            b.put(new_task("real", {}, queue="sims"))
+            assert b.qsize(("sims",)) == 1
+            b.ack(b.get(timeout=2, queues=("sims",)).tag)
+            b.close()
+    finally:
+        for s in servers:
+            s.stop()
+    for url in ("file://", "nope://x", "tcp//a:1"):
+        with pytest.raises(ValueError) as port_err:
             MerlinRuntime(broker=url, workspace=str(tmp_path / "x"))
-    b = InMemoryBroker()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        b._forward("tcp://127.0.0.1:1", [new_task("real", {})])
+        with pytest.raises(ValueError) as ref_err:
+            NB_ref.make_broker(url)
+        assert str(port_err.value) == str(ref_err.value)
 
 
 def test_quickstart_entry_on_the_cpu(capsys):

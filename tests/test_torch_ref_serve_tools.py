@@ -1,0 +1,5 @@
+"""The cases of ``tests/test_serve_tools.py`` against the port's copies (see
+``_torch_cases``)."""
+from _torch_cases import reference_cases
+
+globals().update(reference_cases("test_serve_tools", {}))
