@@ -6,13 +6,20 @@
 Phases, each printing its own lines; any failure raises and exits non-zero:
   1. environment: versions, the card's name and power limit;
   2. build: every CUDA source under src/repro_torch/kernels/csrc with nvcc
-     for sm_90a, into build/ (flash_attention, wkv6_scan, ssd_scan); then
-     the tensor-core instructions of each kernel function (cuobjdump -sass),
-     which every bf16 flash, WKV6 and SSD instance must have;
+     for sm_90a, into build/ (flash_attention, flash_attention_bwd,
+     wkv6_scan, ssd_scan); then the tensor-core instructions of each kernel
+     function (cuobjdump -sass), which every bf16 flash forward, WKV6 and
+     SSD instance must have (the backward's scalar kernels report 0);
   3. each kernel against its plain PyTorch version on the card, at the
      main paths' shapes and the edge cases, with the tolerance stated, and
      device times of kernel, plain version and PyTorch's own call (where
-     one call computes the same function) beside the card's bound;
+     one call computes the same function) beside the card's bound.  The
+     flash backward (dq, dk, dv) is held to ref.flash_attention_bwd_ref on
+     the forward kernel's output and log-sum-exp at BWD_SHAPES (jag's
+     training shapes, zamba2's 512 shape, GQA, window + softcap, D 16 and
+     128, ragged S, two fp32 shapes), the autograd Function must give the
+     same gradients, and its library time is scaled_dot_product_attention's
+     backward;
   4. serve: jag-surrogate, rwkv6-3b and zamba2-1.2b at full width and full
      depth through ServeEngine (random weights from seed 0; batch 4,
      prompts of 32, 200 and 512 tokens, 32 new tokens each).  Every launch
@@ -55,18 +62,33 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      calibration bundles at row-rel 3.4e-4, each metro's posterior RMSE
      within rel 1e-3, and on the card strong NPIs lower the median peak;
   9. icf: ``launch/icf_ensemble`` at 10,000 samples with 30 % worker deaths
-     and crawl-and-resubmit passes: 10,000 of 10,000 on disk at the end;
+     and crawl-and-resubmit passes: 10,000 of 10,000 on disk at the end
+     and loaded one row a sample (a sample written twice must agree);
  10. optimization_loop: ``launch/optimization_loop`` (96 a batch, 4
      iterations, 3 workers): ``best`` does not go down from the first
      iteration to the last.
-Phases 6-10 launch none of the three kernels: their counts are set to 0
+Phases 6-10 launch none of the kernels: their counts are set to 0
 before each phase and must read 0 after it.
+ 11. train: ``python -m repro_torch.launch.train`` (jag-surrogate at full
+     width and depth, AdamW, remat full) in this process: 200 steps over the
+     quickstart study's bundles (phase 6's archive), where the mean loss of
+     the last 10 steps must be below the first 10's; 20 more steps resumed
+     from its last checkpoint (the rerun must start at step 201); 50
+     synthetic steps at batch 8 x seq 128; 20 float32-compute steps whose
+     losses must agree with the CPU port's run from the same seed and
+     batches within rel 1e-3.  Each run's counts are set to 0 before it and
+     must be exact: 2 flash forwards (one a recompute) and 1 backward a
+     layer and step, no WKV6 or SSD launch.  Step ms, tokens/s, peak memory,
+     and a torch.profiler reading of the device's busy time and idle share
+     a step.
 The last line is {"ok": true, "device": {...}}.  Without a card, or without
 the rest of the repository beside it, the script exits non-zero before it.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
+import io
 import json
 import os
 import re
@@ -98,6 +120,9 @@ from repro_torch.launch import covid_calibration  # noqa: E402
 from repro_torch.launch import icf_ensemble  # noqa: E402
 from repro_torch.launch import optimization_loop  # noqa: E402
 from repro_torch.launch import quickstart  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.data.pipeline import SyntheticTokens  # noqa: E402
+from repro_torch.train.trainer import Trainer  # noqa: E402
 from repro_torch.serve.gateway import SurrogateGateway  # noqa: E402
 from repro_torch.sim import jag_simulate, seir_simulate  # noqa: E402
 
@@ -134,7 +159,15 @@ SHAPES = [
 MAIN_PATH = ("jag_prefill_512", "jag_prefill_200", "jag_prefill_32",
              "zamba2_prefill_512", "zamba2_prefill_200", "zamba2_prefill_32")
 PROMPT_LENS, BATCH, NEW_TOKENS = (32, 200, 512), 4, 32
-KERNELS = {"flash_attention": fak, "wkv6_scan": wkvk, "ssd_scan": ssdk}
+# kernel -> (module, its launch counter); flash_attention_bwd is built from
+# csrc/flash_attention_bwd.cu and counted by the flash wrapper
+KERNELS = {"flash_attention": (fak, "launches"),
+           "flash_attention_bwd": (fak, "bwd_launches"),
+           "wkv6_scan": (wkvk, "launches"), "ssd_scan": (ssdk, "launches")}
+# the serve lines' names of the counts
+COUNT_KEYS = {"flash_attention": "flash_launches",
+              "flash_attention_bwd": "flash_bwd_launches",
+              "wkv6_scan": "wkv6_launches", "ssd_scan": "ssd_launches"}
 
 # Scans: max |kernel - plain| / max |plain| below SCAN_REL.  float32 is
 # tests/test_kernels.py's bar; a bf16 output is rounded to 8 mantissa bits
@@ -477,7 +510,7 @@ def phase_scan(dev, name, mod, plain, shapes, main, make, work):
 
 
 def _launches():
-    return {name: mod.launches for name, mod in KERNELS.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in KERNELS.items()}
 
 
 def _rel(got, want):
@@ -503,8 +536,7 @@ def phase_serve(dev, arch):
     eng.generate(requests[0][:, :8], 2)  # warm-up: library handles, allocator
     eng.stats = {k: type(v)() for k, v in eng.stats.items()}
 
-    for mod in KERNELS.values():
-        mod.launches = 0
+    _zero_launches()
     outs = [eng.generate(t, NEW_TOKENS) for t in requests]
     launches = _launches()
 
@@ -568,7 +600,7 @@ def phase_serve(dev, arch):
     s = eng.stats
     say("serve", arch=cfg.arch_id, batch=BATCH, prompt_lens=list(PROMPT_LENS),
         new_tokens=NEW_TOKENS, n_layers=cfg.n_layers, d_model=cfg.d_model,
-        **{f"{name.split('_')[0]}_launches": n for name, n in launches.items()},
+        **{COUNT_KEYS[name]: n for name, n in launches.items()},
         expected_launches=want, first_token_rel_err=rels, rel_tol=bars,
         fp32_first_token_rel_err=rel32, fp32_rel_tol=FP32_SERVE_REL,
         prefill_tok_per_s=s["prefill_tokens"] / s["prefill_s"],
@@ -613,8 +645,7 @@ def _sorted_rows(data):
 
 def phase_merlin(dev):
     """The Merlin loop on the card; raises on any miss."""
-    for mod in KERNELS.values():
-        mod.launches = 0
+    _zero_launches()
     card, data, sur = quickstart.run_study(dev, samples=MERLIN_SAMPLES)
     launches = _launches()
     bound = len(ens.bucket_schedule(quickstart.BUNDLE))
@@ -718,8 +749,8 @@ CASCADE_RMSE_REL = 1e-3
 
 
 def _zero_launches():
-    for mod in KERNELS.values():
-        mod.launches = 0
+    for mod, attr in KERNELS.values():
+        setattr(mod, attr, 0)
 
 
 def _no_launches(phase):
@@ -926,7 +957,11 @@ def phase_icf(dev):
         **_card())
     n = icf_ensemble.N_SAMPLES
     if res["on_disk"] != n or res["rows"] != n:
-        raise RuntimeError(f"icf: {res['on_disk']} of {n} on disk")
+        raise RuntimeError(f"icf: {res['on_disk']} of {n} on disk, "
+                           f"{res['rows']} rows loaded")
+    if not res["duplicates_agree"]:
+        raise RuntimeError(f"icf: {res['duplicate_rows']} rows written twice "
+                           f"differ from their first copy")
 
 
 def phase_optimization_loop(dev):
@@ -940,8 +975,310 @@ def phase_optimization_loop(dev):
         raise RuntimeError(f"best went down: {history}")
 
 
+# Flash backward: (name, B, S, T, H, KV, D, dtype, causal, window, softcap).
+# jag's training shapes (synthetic S 128; the quickstart's bundles, S 8),
+# zamba2's 512 prefill shape, then every option and ragged edge.
+BWD_SHAPES = [
+    ("jag_train_128", 8, 128, 128, 4, 4, 64, BF16, True, None, None),
+    ("jag_bundles_8", 8, 8, 8, 4, 4, 64, BF16, True, None, None),
+    ("zamba2_512", 4, 512, 512, 32, 32, 64, BF16, True, None, None),
+    ("gqa_8_2", 2, 256, 256, 8, 2, 64, BF16, True, None, None),
+    ("window64_softcap30", 2, 300, 300, 4, 2, 32, BF16, True, 64, 30.0),
+    ("D16", 1, 130, 130, 2, 1, 16, BF16, True, None, None),
+    ("D128_gqa", 2, 200, 200, 8, 2, 128, BF16, True, None, None),
+    ("ragged_100", 2, 100, 100, 4, 4, 64, BF16, True, None, None),
+    ("f32_D64", 2, 256, 256, 4, 4, 64, F32, True, None, None),
+    ("f32_window16_softcap30_gqa", 2, 100, 100, 4, 2, 32, F32, True, 16,
+     30.0),
+]
+BWD_MAIN = ("jag_train_128", "jag_bundles_8")
+BWD_TIMED = BWD_MAIN + ("zamba2_512",)
+# max |kernel - plain| / max |plain| of dq, dk, dv: float32 sums in another
+# order; bf16 outputs are rounded once to 8 mantissa bits.  The forward's
+# log-sum-exp against flash_attention_lse_ref's: absolute, in nats.
+BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+LSE_ATOL = 1e-3
+
+
+def sdpa_backward(q, k, v, do, causal, scale):
+    """Device ms of scaled_dot_product_attention's backward alone (autograd
+    over a kept graph), by default dispatch and per backend (None where a
+    backend refuses these inputs)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    gqa = q.shape[2] != k.shape[2]
+
+    def time_bwd():
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, scale=scale, enable_gqa=gqa)
+        return device_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True))
+
+    per = {}
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH"):
+        try:
+            with sdpa_kernel([getattr(SDPBackend, name)]):
+                per[name] = time_bwd()
+        except RuntimeError:
+            per[name] = None
+    return {"library_ms": time_bwd(), "library_backend_ms": per}
+
+
+def bwd_work(q, k, kw):
+    """Bytes (q, k, v, o, dO, lse read once; dq, dk, dv written once) and
+    the products of the backward over the kept (query, key) pairs: Q K^T,
+    dO V^T, P^T dO, dS K and dS^T Q, 2 D each."""
+    B, S, H, D = q.shape
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + B * H * S * 4
+    pairs = valid_pairs(S, k.shape[1], kw["causal"], kw["window"], 0)
+    return _bound(nbytes, 10 * D * B * H * pairs)
+
+
+def phase_flash_backward(dev):
+    """The backward kernel against its plain version at every BWD_SHAPES
+    entry, from the forward kernel's output and log-sum-exp (held to its
+    plain version too); the autograd Function gives the same gradients as
+    the direct calls.  Timed at BWD_TIMED beside the forward with and
+    without the log-sum-exp store and scaled_dot_product_attention's
+    backward."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    errs, timing = {}, {}
+    for name, B, S, T, H, KV, D, dt, causal, window, softcap in BWD_SHAPES:
+        q, do = (torch.randn(B, S, H, D, generator=gen, device=dev).to(dt)
+                 for _ in range(2))
+        k, v = (torch.randn(B, T, KV, D, generator=gen, device=dev).to(dt)
+                for _ in range(2))
+        kw = dict(causal=causal, window=window, softcap_val=softcap)
+        out, lse = fak.flash_attention_lse(q, k, v, **kw)
+        got = fak.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        _, lse_plain = ref.flash_attention_lse_ref(q, k, v, **kw)
+        want = ref.flash_attention_bwd_ref(q, k, v, out, do, lse, **kw)
+        lse_err = float((lse - lse_plain).abs().max())
+        rels = {g: _rel(a, b) for g, a, b in zip(("dq", "dk", "dv"), got,
+                                                 want)}
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, want))
+        qa, ka, va = (x.detach().requires_grad_() for x in (q, k, v))
+        fak.flash_attention(qa, ka, va, **kw).backward(do)
+        same = all(torch.equal(x.grad, g) for x, g in zip((qa, ka, va), got))
+        ok = bool(all(torch.isfinite(g.float()).all() for g in got)
+                  and max(rels.values()) < BWD_REL[dt]
+                  and lse_err < LSE_ATOL and same)
+        errs[name] = err
+        say("kernel_vs_plain", kernel="flash_attention_bwd", shape=name,
+            B=B, S=S, T=T, H=H, KV=KV, D=D, dtype=str(dt).split(".")[-1],
+            causal=causal, window=window, softcap=softcap, max_abs_err=err,
+            rel_err=rels, rel_tol=BWD_REL[dt], lse_abs_err=lse_err,
+            lse_atol=LSE_ATOL, autograd_equals_direct=same, ok=ok)
+        if not ok:
+            raise RuntimeError(f"flash_attention_bwd disagrees with its plain "
+                               f"version at {name}: {rels}, lse {lse_err}, "
+                               f"autograd equal {same}")
+        if name in BWD_TIMED:
+            scale = 1.0 / D ** 0.5
+            t = timing[name] = {
+                "ms": device_ms(lambda: fak.flash_attention_bwd(
+                    q, k, v, out, lse, do, **kw)),
+                "plain_ms": device_ms(lambda: ref.flash_attention_bwd_ref(
+                    q, k, v, out, do, lse, **kw)),
+                "fwd_lse_ms": device_ms(lambda: fak.flash_attention_lse(
+                    q, k, v, **kw)),
+                "fwd_ms": device_ms(lambda: fak.flash_attention(q, k, v, **kw)),
+                **sdpa_backward(q, k, v, do, causal, scale),
+                **bwd_work(q, k, kw)}
+            t["kernel_over_bound"] = t["ms"] / t["bound_ms"]
+            t["kernel_over_library"] = t["ms"] / t["library_ms"]
+            say("kernel_time", kernel="flash_attention_bwd", shape=name,
+                kernel_ms=t["ms"], **{key: val for key, val in t.items()
+                                      if key != "ms"}, **_card())
+    return errs, timing
+
+
+TRAIN_BUNDLE_STEPS = 200      # jag at full width on the quickstart's bundles
+TRAIN_RESUME_STEPS = 20       # then resumed from its last checkpoint
+TRAIN_SYNTH_STEPS = 50        # synthetic tokens, batch 8 x seq 128
+FP32_TRAIN_STEPS = 20         # float32 compute, card against the CPU port
+FP32_TRAIN_REL = 1e-3
+# a JAG record's tokens as an LM sees them: 5 inputs and 4 scalars, less one
+RECORD_SEQ = 5 + len(launch_train.SCALAR_KEYS) - 1
+
+
+def _train_launches(cfg, steps):
+    """Exact counts of a training run under remat="full": each layer's
+    forward runs twice a microbatch (once more in the backward's recompute),
+    its backward once."""
+    if cfg.remat != "full":
+        raise RuntimeError(f"jag-surrogate's remat is {cfg.remat!r}")
+    n = cfg.n_layers * max(1, cfg.microbatch) * steps
+    return {"flash_attention": 2 * n, "flash_attention_bwd": n,
+            "wkv6_scan": 0, "ssd_scan": 0}
+
+
+def _train_run(label, args, tokens, want):
+    """``python -m repro_torch.launch.train ARGS`` in this process, its
+    launch counts read around it (``tokens``: a step's); returns (summary,
+    trainer, launches)."""
+    _zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.redirect_stdout(io.StringIO()):  # said below instead
+        summary, tr = launch_train.main(args)
+    launches = _launches()
+    dts = sorted(h["dt"] for h in tr.history[1:]) or [float("nan")]
+    say("train", run=label, **summary, expected_launches=want,
+        kernel_launches=launches, tokens_per_step=tokens,
+        step_ms_median=1e3 * statistics.median(dts),
+        step_ms_p90=1e3 * dts[int(0.9 * (len(dts) - 1))],
+        tokens_per_s_at_median=tokens / statistics.median(dts),
+        first10_loss=[h["loss"] for h in tr.history[:10]],
+        last10_loss=[h["loss"] for h in tr.history[-10:]],
+        max_memory_allocated=torch.cuda.max_memory_allocated(), **_card())
+    if launches != want:
+        raise RuntimeError(f"train {label}: kernel launches {launches}, "
+                           f"expected {want}")
+    if not all(np.isfinite(h["loss"]) for h in tr.history):
+        raise RuntimeError(f"train {label}: non-finite loss")
+    return summary, tr, launches
+
+
+PROFILE_STEPS = 5
+
+
+def profile_steps(tr, step_ms):
+    """Device time of PROFILE_STEPS steps of ``tr`` (restored from its last
+    checkpoint) under torch.profiler, by kernel group, and the device's idle
+    share of a step: 1 - device busy per step / ``step_ms`` (the median
+    step wall of the same run without the profiler).  Kernels run on one
+    stream, so their summed times are the busy time.  None where the
+    profiler records no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    state = tr.restore_or_init()
+    batches = [next(tr.data) for _ in range(PROFILE_STEPS + 1)]
+    state, m = tr.step_fn(state, batches[0])  # warm
+    float(m["loss"])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for b in batches[1:]:
+            state, m = tr.step_fn(state, b)
+        float(m["loss"])
+        torch.cuda.synchronize()
+    groups, n_events = {}, 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        n_events += 1
+        name = ("flash_fwd" if "flash_fwd" in e.name else
+                "flash_bwd" if "flash_bwd" in e.name else
+                "gemm" if "gemm" in e.name.lower() else "other")
+        groups[name] = groups.get(name, 0.0) + e.time_range.elapsed_us()
+    if not n_events:
+        return {"device_busy_ms_per_step": None, "idle_share": None}
+    busy = sum(groups.values()) / 1e3 / PROFILE_STEPS
+    return {"device_busy_ms_per_step": busy,
+            "device_ms_per_step_by_group": {
+                k: v / 1e3 / PROFILE_STEPS for k, v in sorted(groups.items())},
+            "device_events_per_step": n_events / PROFILE_STEPS,
+            "step_ms": step_ms, "idle_share": 1.0 - busy / step_ms}
+
+
+def phase_train(data):
+    """jag-surrogate at full width through launch.train on the card: on
+    the quickstart study's bundles (its archive, written back as bundles of
+    64) for TRAIN_BUNDLE_STEPS, where the loss must fall; resumed from its
+    last checkpoint; synthetic at batch 8 x seq 128; then launch.train's
+    Trainer in float32 compute on the card against the same on the CPU,
+    from one seed and one batch stream.  Returns the card runs' summed
+    launch counts."""
+    import tempfile
+    cfg = registry.get_config("jag-surrogate")
+    total = {name: 0 for name in KERNELS}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "study")
+        n = len(data["inputs"])
+        for lo in range(0, n, quickstart.BUNDLE):
+            Bundler(root).write_bundle(lo, min(n, lo + quickstart.BUNDLE), {
+                k: v[lo:lo + quickstart.BUNDLE] for k, v in data.items()
+                if not k.startswith("_")})
+        wd = os.path.join(tmp, "bundles")
+        runs = [
+            ("bundles", ["--data", root, "--steps", str(TRAIN_BUNDLE_STEPS),
+                         "--ckpt-every", "100", "--workdir", wd],
+             TRAIN_BUNDLE_STEPS, 8 * RECORD_SEQ),
+            ("bundles_resumed",
+             ["--data", root, "--ckpt-every", "100", "--workdir", wd,
+              "--steps", str(TRAIN_BUNDLE_STEPS + TRAIN_RESUME_STEPS)],
+             TRAIN_RESUME_STEPS, 8 * RECORD_SEQ),
+            ("synthetic", ["--batch", "8", "--seq", "128", "--steps",
+                           str(TRAIN_SYNTH_STEPS), "--ckpt-every", "50",
+                           "--workdir", os.path.join(tmp, "synthetic")],
+             TRAIN_SYNTH_STEPS, 8 * 128)]
+        trainers = {}
+        for label, args, steps, tokens in runs:
+            summary, tr, launches = _train_run(label, args, tokens,
+                                               _train_launches(cfg, steps))
+            trainers[label] = tr
+            for name, k in launches.items():
+                total[name] += k
+        for label in ("synthetic", "bundles"):
+            tr = trainers[label]
+            dts = sorted(h["dt"] for h in tr.history[1:])
+            say("train_profile", run=label, profiled_steps=PROFILE_STEPS,
+                **profile_steps(tr, 1e3 * statistics.median(dts)), **_card())
+        hist = trainers["bundles"].history
+        first = statistics.mean(h["loss"] for h in hist[:10])
+        last = statistics.mean(h["loss"] for h in hist[-10:])
+        if not last < first:
+            raise RuntimeError(f"train on bundles: the loss did not fall "
+                               f"({first} -> {last})")
+        resumed = trainers["bundles_resumed"].history
+        if resumed[0]["step"] != TRAIN_BUNDLE_STEPS + 1 or len(resumed) != \
+                TRAIN_RESUME_STEPS:
+            raise RuntimeError(f"the rerun did not resume at step "
+                               f"{TRAIN_BUNDLE_STEPS + 1}: {resumed[:1]}")
+        # float32 compute: the Trainer launch.train builds, on the card
+        # and on the CPU, from one seed over one synthetic stream
+        cfg32 = cfg.replace(compute_dtype="float32")
+        f32 = {}
+        for dev in ("cuda", "cpu"):
+            _zero_launches()
+            tr = Trainer(cfg32, os.path.join(tmp, f"f32_{dev}"),
+                         iter(SyntheticTokens(8, 128, cfg.vocab_size)),
+                         ckpt_every=FP32_TRAIN_STEPS, device=dev)
+            tr.train(FP32_TRAIN_STEPS)
+            launches = _launches()
+            want = (_train_launches(cfg, FP32_TRAIN_STEPS) if dev == "cuda"
+                    else {name: 0 for name in KERNELS})
+            dts = sorted(h["dt"] for h in tr.history[1:])
+            say("train", run=f"float32_{dev}", steps=FP32_TRAIN_STEPS,
+                expected_launches=want, kernel_launches=launches,
+                step_ms_median=1e3 * statistics.median(dts), **_card())
+            if launches != want:
+                raise RuntimeError(f"float32 {dev}: kernel launches "
+                                   f"{launches}, expected {want}")
+            if dev == "cuda":
+                for name, k in launches.items():
+                    total[name] += k
+            f32[dev] = np.array([h["loss"] for h in tr.history])
+    got, want = f32["cuda"], f32["cpu"]
+    rel = float(abs(got - want).max() / abs(want).max())
+    say("train_parity", steps=FP32_TRAIN_STEPS, loss_rel=rel,
+        rel_tol=FP32_TRAIN_REL, card_losses=got.tolist(),
+        cpu_losses=want.tolist(), loss_fell_bundles=[first, last])
+    if not rel < FP32_TRAIN_REL:
+        raise RuntimeError(f"float32 training on the card and the CPU differ "
+                           f"by rel {rel}")
+    _free()
+    return total
+
+
 SOURCES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:26",
+    # no TPU kernel: the gradient the reference takes with jax.grad of
+    "flash_attention_bwd": "src/repro/kernels/ref.py:55",
     "wkv6_scan": "src/repro/kernels/wkv6_scan.py:18",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:21",
 }
@@ -960,6 +1297,9 @@ def main() -> int:
     errs["flash_attention"], t = phase_flash(dev)
     timing["flash_attention"] = t["jag_prefill_512"]
     main_shapes = {"flash_attention": MAIN_PATH}
+    errs["flash_attention_bwd"], t = phase_flash_backward(dev)
+    timing["flash_attention_bwd"] = t["jag_train_128"]
+    main_shapes["flash_attention_bwd"] = BWD_MAIN
     for name, mod, plain, shapes, main_, make, work in (
             ("wkv6_scan", wkvk, {"sigmoid": ref.wkv6_chunked_ref,
                                  "strong": ref.wkv6_chunked_ref},
@@ -982,6 +1322,8 @@ def main() -> int:
     phase_cascade(dev)
     phase_icf(dev)
     phase_optimization_loop(dev)
+    for name, n in phase_train(data).items():
+        launches[name] += n
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{name}.cu",

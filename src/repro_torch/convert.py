@@ -15,6 +15,11 @@ array) and returns the port's ``LM`` holding the same values:
     like any other leaf, so ``strict=True`` holds both trees to one set of
     names.
 
+``train_state_from_jax(state_np, cfg, device)`` takes the reference's
+``TrainState`` under AdamW as numpy and returns the port's, with AdamW's
+``m`` and ``v`` mapped through the same names as the parameters, so that
+both sides can start a training step from one state.
+
 ``surrogate_from_jax(stacked, device)`` takes the reference's stacked
 deep-ensemble pytree as numpy, ``[{"w": (M, din, dout), "b": (M, dout)},
 ...]`` (members on the leading axis), and returns the port's
@@ -56,7 +61,8 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
-def params_from_jax(tree, cfg: ModelConfig, device="cuda") -> lm.LM:
+def _state_dict(tree, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The reference's params-shaped tree (as numpy) -> {port name: tensor}."""
     extra = sorted(set(tree) - set(_TOP))
     if extra:
         raise NotImplementedError(f"params {extra} belong to layer kinds the "
@@ -79,10 +85,40 @@ def params_from_jax(tree, cfg: ModelConfig, device="cuda") -> lm.LM:
                                  f"{stacked.shape[0]} != n_repeat {cfg.n_repeat}")
             for r in range(cfg.n_repeat):
                 sd[f"layers.{n_pro + r * n_sb + i}.{name}"] = _tensor(stacked[r])
+    return sd
+
+
+def params_from_jax(tree, cfg: ModelConfig, device="cuda") -> lm.LM:
     gen = torch.Generator(device=device).manual_seed(0)
     model = lm.init_params(cfg, gen, device)
-    model.load_state_dict(sd, strict=True)
+    model.load_state_dict(_state_dict(tree, cfg), strict=True)
     return model
+
+
+def train_state_from_jax(state_np, cfg: ModelConfig, device="cuda"):
+    """The reference's ``TrainState`` under AdamW as numpy, ``(params,
+    {"m": tree, "v": tree, "step": n}, step)``, -> the port's
+    ``train.trainstep.TrainState``: the model from ``params``, and ``m`` and
+    ``v`` keyed by the same parameter names, leaf for leaf."""
+    from repro_torch.train.trainstep import TrainState, named_params
+    params, opt, step = state_np
+    model = params_from_jax(params, cfg, device)
+    names = set(named_params(model))
+
+    def moments(tree):
+        sd = _state_dict(tree, cfg)
+        if set(sd) != names:
+            raise ValueError(f"optimizer leaves {sorted(set(sd) ^ names)} "
+                             "do not match the parameters")
+        return {k: v.to(device) for k, v in sd.items()}
+
+    def int32(n):
+        return torch.tensor(int(np.asarray(n)), dtype=torch.int32,
+                            device=device)
+
+    new_opt = {"m": moments(opt["m"]), "v": moments(opt["v"]),
+               "step": int32(opt["step"])}
+    return TrainState(model, new_opt, int32(step))
 
 
 def surrogate_from_jax(stacked, device="cuda") -> Surrogate:

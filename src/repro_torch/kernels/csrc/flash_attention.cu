@@ -7,6 +7,8 @@
 // accumulator), masks kpos < T, causal qpos >= kpos with qpos = q_pos0 + row,
 // and window qpos - kpos < window; GQA maps query head h to KV head
 // h / (H / KV).  Layout: q, o (B,S,H,D) and k, v (B,T,KV,D), contiguous.
+// On request (training) each kernel also stores the row log-sum-exp
+// m + ln l, float32 (B,H,S), which flash_attention_bwd.cu reads.
 //
 // The TPU grid (B, H, S/bq, T/bk) ran its KV axis in order on one core,
 // carrying m/l/acc in VMEM.  Blocks of a GPU run in no order, so here one
@@ -73,12 +75,14 @@ constexpr int RQ = BQ / TY;   // query rows per thread
 constexpr int CK = BK / TX;   // keys per thread
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  float* lse;     // (B, H, S) row log-sum-exp, natural log; null: not stored
   int B, S, T, H, KV;
   float scale;
   float softcap;  // <= 0: no softcap
@@ -238,6 +242,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(const Params p) {
 #pragma unroll
     for (int c = 0; c < DC; ++c)
       ob[s * q_row + tx + TX * c] = acc[i][c] / denom;
+    // m and l are the same in the row's 8 owners (reduced by shuffles)
+    if (p.lse != nullptr && tx == 0)
+      p.lse[((long long)b * p.H + h) * p.S + s] = m[i] + logf(denom);
   }
 }
 
@@ -445,12 +452,16 @@ __global__ void __launch_bounds__(NT, D <= 64 ? 4 : 2)
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const int srow = q0 + r0 + 8 * i;
-    if (srow >= p.S) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    if (srow >= p.S) continue;  // the last tile's padded rows store nothing
+    const float denom = fmaxf(l[i], 1e-30f);
+    const float inv = 1.f / denom;
 #pragma unroll
     for (int n = 0; n < ND; ++n)
       *reinterpret_cast<uint32_t*>(ob + srow * q_row + n * 8 + 2 * q4) =
           tc::pack_bf16(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
+    // m is in log2 units of the scaled logits: ln(2^m l) = m ln 2 + ln l
+    if (p.lse != nullptr && q4 == 0)
+      p.lse[((long long)b * p.H + h) * p.S + srow] = m[i] * LN2 + logf(denom);
   }
 }
 
@@ -487,13 +498,17 @@ bool aligned16(const void* ptr) {
 // Returns the launch's cudaGetLastError() (0 on success).  The caller has
 // checked shapes, dtype and contiguity; dtype 0 is float32, 1 is bfloat16.
 // The bf16 kernel copies 16-byte chunks, so its pointers must be 16-byte
-// aligned (cudaErrorMisalignedAddress otherwise).
+// aligned (cudaErrorMisalignedAddress otherwise).  lse, when not null, is a
+// float32 (B, H, S) buffer that receives each row's log-sum-exp of its
+// masked, softcapped, scaled logits (natural log): the backward kernel
+// recomputes P = exp(s - lse) from it.  Serving passes null.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, int B, int S, int T, int H, int KV,
-                                   int D, int dtype, float scale,
-                                   float softcap, int causal, int window,
-                                   int q_pos0, void* stream) {
-  Params p{q, k, v, o, B, S, T, H, KV, scale, softcap, causal, window, q_pos0};
+                                   void* o, float* lse, int B, int S, int T,
+                                   int H, int KV, int D, int dtype,
+                                   float scale, float softcap, int causal,
+                                   int window, int q_pos0, void* stream) {
+  Params p{q, k, v, o, lse, B, S, T, H, KV, scale, softcap, causal, window,
+           q_pos0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1 && !(aligned16(q) && aligned16(k) && aligned16(v) &&

@@ -8,6 +8,12 @@ Dispatch policy (``use_pallas``, the reference's field name):
   * ``"never"`` — always the plain version (tests and ``chip_smoke.py``'s
                   yardstick; the main path never sets it).
 
+Gradients.  On a CPU tensor the plain versions are differentiated by
+autograd, as the reference differentiates its plain path.  On a CUDA tensor
+``flash_attention`` under grad goes through the wrapper's autograd Function
+(the forward kernel with its row log-sum-exp, then the backward kernel);
+``wkv6_scan`` and ``ssd_scan`` have no backward kernel yet and raise there.
+
 The scans pad a ragged S to a multiple of ``chunk`` as the reference does
 (zeros; w with 1.0, whose log-decay 0 makes the padding inert) and slice the
 result back.  On the kernel path the inputs are made contiguous, since the

@@ -7,6 +7,9 @@ with the same online softmax, so its memory stays O(S·block).  It computes in
 the Pallas kernel's order: ``q·scale`` in float32, the dot, softcap, then the
 mask.  ``flash_attention_tc_ref`` mirrors the bf16 tensor-core kernel's
 rounding points (the logits scaled after the product, P rounded to bf16).
+``flash_attention_lse_ref`` adds the row log-sum-exp the forward kernel
+stores for training, and ``flash_attention_bwd_ref`` is the plain version of
+the backward kernel (dq, dk, dv from q, k, v, o, dO and that log-sum-exp).
 
 ``naive_attention`` is the O(S²) oracle, in the reference's own order (dot,
 then scale).  ``decode_attention_ref`` is one token against a cache; the
@@ -68,7 +71,8 @@ def naive_attention(q, k, v, *, causal=True, scale=None, softcap_val=None,
 
 
 def _online_softmax_attention(q, k, v, *, causal, scale, softcap_val, window,
-                              q_pos0, block_k, scale_logits, p_dtype):
+                              q_pos0, block_k, scale_logits, p_dtype,
+                              with_lse=False):
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     g = H // KV
@@ -98,7 +102,10 @@ def _online_softmax_attention(q, k, v, *, causal, scale, softcap_val, window,
         m = m_new
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     out = out.reshape(B, H, S, D).transpose(1, 2)  # (B,S,H,D) with H = KV*g
-    return out.to(q.dtype).contiguous()
+    out = out.to(q.dtype).contiguous()
+    if with_lse:
+        return out, (m + torch.log(torch.clamp_min(l, 1e-30))).reshape(B, H, S)
+    return out
 
 
 def flash_attention_ref(q, k, v, *, causal=True, scale=None, softcap_val=None,
@@ -122,6 +129,61 @@ def flash_attention_tc_ref(q, k, v, *, causal=True, scale=None,
         q, k, v, causal=causal, scale=scale, softcap_val=softcap_val,
         window=window, q_pos0=q_pos0, block_k=block_k, scale_logits=True,
         p_dtype=q.dtype)
+
+
+def flash_attention_lse_ref(q, k, v, *, causal=True, scale=None,
+                            softcap_val=None, window=None, q_pos0=0,
+                            block_k=1024):
+    """``flash_attention_ref``'s output and each row's log-sum-exp of its
+    masked, softcapped, scaled logits (natural log, float32 (B,H,S)): what
+    the forward kernel stores for the backward."""
+    return _online_softmax_attention(
+        q, k, v, causal=causal, scale=scale, softcap_val=softcap_val,
+        window=window, q_pos0=q_pos0, block_k=block_k, scale_logits=False,
+        p_dtype=torch.float32, with_lse=True)
+
+
+def flash_attention_bwd_ref(q, k, v, o, do, lse, *, causal=True, scale=None,
+                            softcap_val=None, window=None, q_pos0=0,
+                            block_k=1024):
+    """Plain version of the backward kernel: (dq, dk, dv) of
+    ``flash_attention_ref`` at output ``o`` with gradient ``do``, from the
+    row log-sum-exp ``lse`` (B,H,S), chunked over KV blocks in float32
+    (FlashAttention-2's backward): D = rowsum(dO o O), P = exp(s - lse)
+    (0 where masked), dV = P^T dO, dS = P o (dO V^T - D) times the softcap's
+    derivative, dQ = scale dS K, dK = scale dS^T Q.  The backward kernel
+    rounds nothing to bf16 inside, so this is its mirror for both dtypes."""
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    g = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qf = q.reshape(B, S, KV, g, D).float()
+    dof = do.reshape(B, S, KV, g, D).float()
+    delta = (dof * o.reshape(B, S, KV, g, D).float()).sum(-1)  # (B,S,KV,g)
+    delta = delta.permute(0, 2, 3, 1)[..., None]               # (B,KV,g,S,1)
+    lse = lse.reshape(B, KV, g, S, 1).float()
+    qpos = (torch.arange(S, device=q.device) + q_pos0)[:, None]
+    dq = torch.zeros_like(qf)
+    dks, dvs = [], []
+    for start in range(0, T, block_k):
+        kc = k[:, start:start + block_k].float()
+        vc = v[:, start:start + block_k].float()
+        raw = torch.einsum("bskgd,btkd->bkgst", qf, kc) * scale
+        if softcap_val is None:
+            x, dcap = raw, 1.0
+        else:
+            t = torch.tanh(raw / softcap_val)
+            x, dcap = softcap_val * t, 1.0 - t * t
+        kpos = start + torch.arange(kc.shape[1], device=q.device)[None, :]
+        keep = _mask(qpos, kpos, causal, window)
+        p = torch.where(keep, torch.exp(x - lse), 0.0)
+        dvs.append(torch.einsum("bkgst,bskgd->btkd", p, dof))
+        dp = torch.einsum("bskgd,btkd->bkgst", dof, vc)
+        ds = p * (dp - delta) * dcap
+        dq += torch.einsum("bkgst,btkd->bskgd", ds, kc) * scale
+        dks.append(torch.einsum("bkgst,bskgd->btkd", ds, qf) * scale)
+    return (dq.reshape(B, S, H, D).to(q.dtype),
+            torch.cat(dks, dim=1).to(k.dtype), torch.cat(dvs, dim=1).to(v.dtype))
 
 
 def decode_attention_ref(q, ck, cv, *, kv_len, scale=None, softcap_val=None,

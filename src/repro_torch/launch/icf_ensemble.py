@@ -25,7 +25,7 @@ import os
 import sys
 import tempfile
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -40,6 +40,39 @@ SPEC_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "specs",
                          "icf_ensemble.yaml")
 N_SAMPLES = 10_000
 FAILURE_RATE = 0.3
+# a sample's two copies, relative to the field's largest magnitude
+DUPLICATE_RTOL = 1e-5
+
+
+def dedupe_rows(data: Dict[str, np.ndarray]
+                ) -> Tuple[Dict[str, np.ndarray], int, bool]:
+    """One row a sample id: ``(data, duplicate rows dropped, whether every
+    duplicate equals the row kept)``.
+
+    Delivery is at-least-once: a task whose lease expires while it still
+    runs is run again.  Its second bundle file is harmless until the
+    aggregate step has merged the first copy into ``aggregate.npz``; a copy
+    written after that leaves the same ids in two files, and ``load_all``
+    returns both.  The simulation
+    is a function of the sample, so the copies must agree: integers exactly,
+    floats within ``DUPLICATE_RTOL`` of the field's largest magnitude (the
+    two copies may have run in batches of other sizes), NaN where NaN."""
+    ids = data["_sample_ids"]
+    uniq, first, inverse = np.unique(ids, return_index=True,
+                                     return_inverse=True)
+    if len(uniq) == len(ids):
+        return data, 0, True
+
+    def same(v: np.ndarray) -> bool:
+        kept = v[first][inverse]
+        if v.dtype.kind not in "fc":
+            return bool(np.array_equal(v, kept))
+        scale = float(np.nanmax(np.abs(v), initial=0.0))
+        return bool(np.allclose(v, kept, rtol=0.0,
+                                atol=DUPLICATE_RTOL * scale, equal_nan=True))
+    agree = all(same(v) for v in data.values())
+    return ({k: v[first] for k, v in data.items()}, len(ids) - len(uniq),
+            agree)
 
 
 def run_icf(device=None, n_samples: int = N_SAMPLES,
@@ -64,7 +97,12 @@ def run_icf(device=None, n_samples: int = N_SAMPLES,
             spec = StudySpec.from_yaml(f.read())
         samples = jag_sample_inputs(0, n_samples).numpy()
 
-        rt.broker._vt = 1.0  # fast redelivery for dead workers
+        # the reference sets a 1 s visibility timeout "for dead workers";
+        # an injected death nacks at once, so that timeout only ever
+        # expires on a task that is still running: the aggregate step
+        # (seconds of compression at 10,000 samples) then runs twice at
+        # once, and two aggregations of one leaf can lose rows or race
+        # the final crawl.  The broker's default outlasts every task.
         t0 = time.time()
         passes = []
         # 30% worker death rate: the "volatile early access period"
@@ -104,12 +142,13 @@ def run_icf(device=None, n_samples: int = N_SAMPLES,
         # aggregate step merges bundle files and so miss some of them
         present, _ = bundler.crawl()
 
-        data = bundler.load_all()
+        data, duplicates, agree = dedupe_rows(bundler.load_all())
         ok = np.isfinite(data["yield"])
         rate = executor.stats["samples"] / max(executor.stats["sim_time"], 1e-9)
         res = {"device": env.device_name(dev), "n_samples": n_samples,
                "passes": passes, "on_disk": len(present),
                "rows": int(len(data["yield"])),
+               "duplicate_rows": duplicates, "duplicates_agree": agree,
                "physics_failures": int((~ok).sum()),
                "physics_failure_pct": float(100 * (~ok).mean()),
                "image_mib": data["images"].nbytes / 2**20,

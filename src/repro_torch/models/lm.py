@@ -9,6 +9,10 @@ the top of ``LM`` and whose input is concat(hidden, embeddings of the current
 call)); every other kind or option raises ``NotImplementedError`` naming the
 ROADMAP item that brings it.
 
+Training: ``forward_train`` runs each layer under ``cfg.remat`` and
+``loss_fn`` is the reference's cross-entropy; gradients come from autograd,
+through the flash kernel's ``autograd.Function`` on the card.
+
 Decode caches roll as in the reference: a buffer of length L < max_len is
 written at ``pos % L``.  The port writes K/V caches in place (one buffer per
 layer for the whole generation) where the reference returns new arrays; the
@@ -17,10 +21,13 @@ replaced by new tensors each step, as in the reference.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Dict, List
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels import ops as kops
@@ -259,18 +266,70 @@ def _logits(params, x, cfg):
     return logits
 
 
+# matrix products whose outputs ``remat="dots"`` keeps (the reference's
+# dots_with_no_batch_dims_saveable: x @ W; attention's batched products
+# and everything elementwise are recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)`` under ``cfg.remat``: ``none`` keeps every activation,
+    ``full`` recomputes the layer in the backward (the reference's
+    ``jax.checkpoint``), ``dots`` keeps the matrix products' outputs and
+    recomputes the rest.  A recompute runs the layer's forward again, the
+    flash kernel included.  Outside grad there is nothing to recompute."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if cfg.remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    if cfg.remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=partial(
+                              create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"remat={cfg.remat!r}: none | full | dots")
+
+
 def forward_train(params, tokens, cfg: ModelConfig):
-    """Teacher-forced forward over full sequences -> logits, aux."""
+    """Teacher-forced forward over full sequences -> logits, aux.  The
+    layers after the prologue run under ``cfg.remat`` one at a time (the
+    reference checkpoints its scan body, one superblock of them)."""
     x = _embed(params, tokens, cfg)
     x0 = x
     shared = getattr(params, "shared_attn", None)
     positions = torch.arange(tokens.shape[1], device=x.device)
     aux_tot = dict(ZERO_AUX)
-    for p, spec in zip(params.layers, cfg.plan):
-        x, _, aux = apply_layer(p, spec, cfg, x, positions=positions, x0=x0,
-                                shared_params=shared)
+    for i, (p, spec) in enumerate(zip(params.layers, cfg.plan)):
+        def layer(x, p=p, spec=spec):
+            y, _, aux = apply_layer(p, spec, cfg, x, positions=positions,
+                                    x0=x0, shared_params=shared)
+            return y, aux
+        x, aux = (layer(x) if i < len(cfg.prologue)
+                  else _remat(cfg, layer, x))
         aux_tot = {k: aux_tot[k] + aux[k] for k in aux_tot}
     return _logits(params, x, cfg), aux_tot
+
+
+def loss_fn(params, batch, cfg: ModelConfig):
+    """Mean next-token cross-entropy over ``labels >= 0`` plus the aux
+    losses, as the reference's: CE by gather and logsumexp over the float32
+    cast of the logits, never the (B,S,V) float32 log-softmax.  ``batch``
+    holds integer tensors ``tokens`` and ``labels`` (B,S) on the model's
+    device.  Returns (loss, metrics)."""
+    logits, aux = forward_train(params, batch["tokens"], cfg)
+    labels = batch["labels"].long()
+    lse = torch.logsumexp(logits.float(), dim=-1)  # (B,S)
+    picked = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0].float()
+    ll = picked - lse
+    mask = (labels >= 0).float()
+    loss = -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    loss = loss + 1e-2 * aux["moe_lb_loss"] + 1e-3 * aux["moe_z_loss"]
+    metrics = {"loss": loss, "ntokens": mask.sum(), **aux}
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
-"""Tests of the port that need the card: each CUDA kernel (flash attention,
-the WKV6 and SSD scans) against its plain version, the serving paths
-launching them, and the ensemble executor's CUDA graphs against its CPU
-path.  They carry
+"""Tests of the port that need the card: each CUDA kernel (flash attention
+forward and backward, the WKV6 and SSD scans) against its plain version, the
+serving and training paths launching them, and the ensemble executor's CUDA
+graphs against its CPU path.  They carry
 the ``cuda`` marker and skip without a card; on the card run
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -379,18 +379,37 @@ def test_surrogate_on_the_card_matches_the_cpu(cuda_device):
 
 
 # ---------------------------------------------------------------------------
-# the kernels have no backward: they refuse an input that requires grad
+# gradients: flash has its backward kernel, the scans refuse grad
 # ---------------------------------------------------------------------------
 
 def test_kernel_wrappers_refuse_grad(cuda_device):
-    """Under grad with an input that requires it, each wrapper raises
-    instead of returning an output without ``grad_fn``; under no_grad, or
-    with no input requiring grad, it launches."""
+    """Under grad with an input that requires it, flash attention returns
+    an output with a ``grad_fn`` whose backward is one launch of the
+    backward kernel; WKV6 and SSD still raise ("no backward") instead of
+    returning an output without ``grad_fn``.  Under no_grad, or with no
+    input requiring grad, each launches its forward and nothing else."""
     q, k, v = _qkv(cuda_device, "bfloat16", 1, 64, 64, 4, 4, 64)
     r, kw, vw, w, u = _wkv_inputs(cuda_device, "bfloat16", 1, 32, 4, 64)
     x, dt, A, Bm, Cm = _ssd_inputs(cuda_device, "bfloat16", 1, 32, 4, 64, 64)
-    calls = [(fak, lambda: fak.flash_attention(q, k, v), (q, k, v)),
-             (wkvk, lambda: wkvk.wkv6_scan(r, kw, vw, w, u, chunk=32),
+    for t in (q, k, v):
+        t.requires_grad_(True)
+        before, bwd = fak.launches, fak.bwd_launches
+        out = fak.flash_attention(q, k, v)
+        assert out.grad_fn is not None and fak.launches == before + 1
+        out.float().square().sum().backward()
+        torch.cuda.synchronize()
+        assert fak.bwd_launches == bwd + 1 and fak.launches == before + 1
+        assert t.grad is not None and t.grad.dtype == t.dtype
+        assert torch.isfinite(t.grad.float()).all()
+        t.grad = None
+        with torch.no_grad():
+            fak.flash_attention(q, k, v)
+        with torch.inference_mode():
+            fak.flash_attention(q, k, v)
+        assert fak.launches == before + 3 and fak.bwd_launches == bwd + 1
+        t.requires_grad_(False)
+    assert fak.flash_attention(q, k, v).grad_fn is None
+    calls = [(wkvk, lambda: wkvk.wkv6_scan(r, kw, vw, w, u, chunk=32),
               (r, kw, vw, w, u)),
              (ssdk, lambda: ssdk.ssd_scan(x, dt, A, Bm, Cm, chunk=32),
               (x, dt, A, Bm, Cm))]
@@ -409,6 +428,120 @@ def test_kernel_wrappers_refuse_grad(cuda_device):
             t.requires_grad_(False)
         out = call()
         assert out.grad_fn is None
+
+
+# max |kernel - plain| / max |plain|: float32 sums in another order; bf16
+# outputs are rounded once to 8 mantissa bits
+BWD_REL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+@pytest.mark.parametrize("B,S,T,H,KV,D,dtype,causal,window,softcap", [
+    (8, 128, 128, 4, 4, 64, "bfloat16", True, None, None),  # jag training
+    (8, 8, 8, 4, 4, 64, "bfloat16", True, None, None),      # jag on bundles
+    (2, 200, 200, 8, 2, 128, "bfloat16", True, None, None),
+    (2, 300, 300, 4, 2, 32, "bfloat16", True, 64, 30.0),
+    (1, 130, 130, 2, 1, 16, "float32", True, None, None),
+    (1, 33, 70, 4, 1, 64, "float32", False, None, None),
+    (2, 100, 100, 4, 2, 64, "float32", True, 16, 30.0),
+])
+def test_backward_kernel_vs_plain(cuda_device, B, S, T, H, KV, D, dtype,
+                                  causal, window, softcap):
+    """dq, dk, dv of the backward kernel against ref.flash_attention_bwd_ref
+    on the same q, k, v, o, dO and log-sum-exp (the forward kernel's, which
+    is held to flash_attention_lse_ref's)."""
+    q, k, v = _qkv(cuda_device, dtype, B, S, T, H, KV, D)
+    rng = np.random.default_rng(9)
+    do = torch.from_numpy(rng.standard_normal((B, S, H, D), dtype=np.float32)
+                          ).to(cuda_device, TDT[dtype])
+    kw = dict(causal=causal, window=window, softcap_val=softcap)
+    out, lse = fak.flash_attention_lse(q, k, v, **kw)
+    _, lse_plain = ref.flash_attention_lse_ref(q, k, v, **kw)
+    torch.testing.assert_close(lse, lse_plain, atol=1e-3, rtol=1e-5)
+    before = fak.bwd_launches
+    got = fak.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert fak.bwd_launches == before + 1
+    want = ref.flash_attention_bwd_ref(q, k, v, out, do, lse, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == b.dtype == TDT[dtype]
+        assert _rel(a, b) < BWD_REL[dtype], name
+
+
+def test_backward_kernel_refuses_what_it_cannot_take(cuda_device):
+    q, k, v = _qkv(cuda_device, "float32", 1, 8, 8, 2, 2, 64)
+    q.requires_grad_(True)
+    with pytest.raises(ValueError, match="q_pos0"):
+        fak.flash_attention(q, k, v, q_pos0=4)
+    with pytest.raises(ValueError, match="no key"):
+        fak.flash_attention(q, k[:, :4].contiguous(), v[:, :4].contiguous(),
+                            causal=False, window=2)
+
+
+def test_training_steps_on_the_card_match_the_cpu(cuda_device, tmp_path):
+    """Three AdamW steps of reduced jag-surrogate in float32 compute from
+    one seed and one batch stream: the card (flash forward and backward
+    kernels, remat="full") against the CPU (plain versions).  Losses and
+    grad norms at rel 1e-4, AdamW's moments after the steps at rel 1e-3
+    (not the parameters: a near-zero gradient's sign may flip between the
+    two, and AdamW moves that parameter by lr either way); the flash counts
+    are 2 forwards (one a recompute) and 1 backward per layer and step."""
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.trainstep import init_state, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = registry.reduced_config("jag-surrogate").replace(
+        compute_dtype="float32")
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        state = init_state(torch.Generator().manual_seed(0), cfg, device=dev)
+        step = make_train_step(cfg, make_optimizer("adamw", lr=1e-3))
+        data = SyntheticTokens(4, 64, cfg.vocab_size)
+        before = (fak.launches, fak.bwd_launches)
+        metrics = []
+        for i in range(3):
+            state, m = step(state, data.batch_at(i))
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[str(dev)] = (metrics, state, (fak.launches - before[0],
+                                           fak.bwd_launches - before[1]))
+    (mc, sc, lc), (mg, sg, lg) = runs["cpu"], runs[str(cuda_device)]
+    assert lc == (0, 0)
+    assert lg == (2 * cfg.n_layers * 3, cfg.n_layers * 3)
+    np.testing.assert_allclose(np.array(mg), np.array(mc), rtol=1e-4)
+    for k in ("m", "v"):
+        for name, a in sg.opt[k].items():
+            assert _rel(a.cpu(), sc.opt[k][name]) < 1e-3, (k, name)
+
+
+@pytest.mark.parametrize("remat,fwd_per_layer", [("none", 1), ("full", 2),
+                                                  ("dots", 2)])
+def test_remat_modes_on_the_card(cuda_device, remat, fwd_per_layer):
+    """Each remat mode gives the CPU's loss and gradients in float32
+    (rel 1e-4) through the flash kernels; ``full`` and ``dots`` run the
+    forward kernel again in the backward's recompute (``dots`` keeps only
+    the x @ W products), ``none`` does not; one backward a layer."""
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.train.trainstep import to_device
+    cfg = registry.reduced_config("jag-surrogate").replace(
+        compute_dtype="float32", remat=remat)
+    batch = SyntheticTokens(2, 64, cfg.vocab_size).batch_at(0)
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        model = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                               "cpu").to(dev)
+        before = (fak.launches, fak.bwd_launches)
+        loss, _ = lm.loss_fn(model, to_device(batch, dev), cfg)
+        g = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+        grads[str(dev)] = (float(loss.detach()), [t.cpu() for t in g],
+                           (fak.launches - before[0],
+                            fak.bwd_launches - before[1]))
+    (lc, gc, nc), (lg, gg, ng) = grads["cpu"], grads[str(cuda_device)]
+    assert nc == (0, 0)
+    assert ng == (fwd_per_layer * cfg.n_layers, cfg.n_layers)
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    for a, b in zip(gg, gc):
+        assert _rel(a, b) < 1e-4
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: importing every ``repro_torch`` module and
 ``chip_smoke.py`` loads neither JAX nor any module of the ``repro`` package,
 and its CUDA entry points raise when no card is visible and the CPU was not
-asked for, while the host-only CLIs (``broker-serve``, ``merlin-validate``,
-``merlin-status``) run without one.  Runs in a fresh interpreter, so nothing
+asked for (``launch.train`` among them), while the host-only CLIs
+(``broker-serve``, ``merlin-validate``, ``merlin-status``) run without one.  Runs in a fresh interpreter, so nothing
 the test process already imported can hide a leak."""
 import os
 import subprocess
@@ -29,6 +29,7 @@ from repro_torch.launch.serve import (broker_serve_main, llm_serve_main,
                                       merlin_validate_main)
 from repro_torch.launch import (covid_calibration, icf_ensemble,
                                 optimization_loop, quickstart)
+from repro_torch.launch import train as launch_train
 study = tempfile.mkdtemp()
 raised = {}
 for name, call in [("env.device", lambda: env.device()),
@@ -48,7 +49,10 @@ for name, call in [("env.device", lambda: env.device()),
                         os.path.join(study, "port")])),
                    ("covid_calibration", lambda: covid_calibration.main([])),
                    ("optimization_loop", lambda: optimization_loop.main([])),
-                   ("icf_ensemble", lambda: icf_ensemble.main(["16"]))]:
+                   ("icf_ensemble", lambda: icf_ensemble.main(["16"])),
+                   ("launch_train", lambda: launch_train.main(
+                       ["--reduced", "--steps", "1", "--workdir",
+                        os.path.join(study, "train")]))]:
     try:
         call()
         raised[name] = None
@@ -107,7 +111,12 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.core.cascade", "repro_torch.serve.gateway",
                 "repro_torch.launch.covid_calibration",
                 "repro_torch.launch.optimization_loop",
-                "repro_torch.launch.icf_ensemble"):
+                "repro_torch.launch.icf_ensemble",
+                "repro_torch.kernels.ops", "repro_torch.kernels._build",
+                "repro_torch.train", "repro_torch.train.optimizer",
+                "repro_torch.train.trainstep", "repro_torch.train.trainer",
+                "repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
+                "repro_torch.launch.train"):
         assert mod in res["modules"]
     host = res["host"]
     assert host["broker_serve_help"] == 0 and "--join" in host["stdout"]
@@ -116,6 +125,7 @@ def test_port_imports_no_jax_and_no_reference():
     assert host["merlin_status"] is None and '"totals"' in host["stdout"]
     assert res["cpu_ok"] == "cpu"
     if not res["cuda"]:
+        assert "launch_train" in res["raised"]
         for name, msg in res["raised"].items():
             assert msg and "no CUDA device" in msg, name
 

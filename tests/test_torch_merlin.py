@@ -37,7 +37,7 @@ from repro_torch.core.queue import FileBroker, InMemoryBroker, new_task
 from repro_torch.core.runtime import MerlinRuntime
 from repro_torch.core.spec import Step, StudySpec
 from repro_torch.core.worker import WorkerPool
-from repro_torch.launch import quickstart
+from repro_torch.launch import icf_ensemble, quickstart
 from repro_torch.sim import jag_simulate, null_simulate, seir_simulate
 from repro_torch.sim.jag import IMG, N_VIEWS
 
@@ -619,3 +619,48 @@ def test_optimization_loop_runs_its_iterations(tmp_path):
     assert [h["iter"] for h in loop.history] == [0, 1]
     assert all(h["n"] > 0 and np.isfinite(h["best"]) for h in loop.history)
     assert len(loop.bundler.load_all()["_sample_ids"]) == 48
+
+
+def _late_copy_tree(tmp_path, perturb=0.0):
+    """Three bundles aggregated, then the middle one written once more (a
+    redelivered task finishing after the aggregate step)."""
+    rng = np.random.default_rng(5)
+    y = rng.random(30).astype(np.float32)
+    y[4] = np.nan
+    img = rng.random((30, 2, 3)).astype(np.float32)
+    b = Bundler(str(tmp_path / "jag"), files_per_leaf=100)
+    for lo in (0, 10, 20):
+        b.write_bundle(lo, lo + 10, {"yield": y[lo:lo + 10],
+                                     "images": img[lo:lo + 10]})
+    assert len(b.aggregate_all()) == 1
+    b.write_bundle(10, 20, {"yield": y[10:20] * (1 + perturb),
+                            "images": img[10:20]})
+    return b, y, img
+
+
+def test_icf_rows_keep_one_copy_of_a_sample_written_twice(tmp_path):
+    b, y, img = _late_copy_tree(tmp_path)
+    present, _ = b.crawl()
+    loaded = b.load_all()
+    assert len(present) == 30 and len(loaded["_sample_ids"]) == 40
+    data, dup, agree = icf_ensemble.dedupe_rows(loaded)
+    assert (dup, agree) == (10, True)
+    np.testing.assert_array_equal(data["_sample_ids"], np.arange(30))
+    np.testing.assert_array_equal(data["yield"], y)
+    np.testing.assert_array_equal(data["images"], img)
+    # a tree without copies comes back as it was
+    same, dup, agree = icf_ensemble.dedupe_rows(data)
+    assert same is data and (dup, agree) == (0, True)
+
+
+def test_icf_rows_flag_copies_that_differ(tmp_path):
+    b, _, _ = _late_copy_tree(tmp_path, perturb=1e-3)
+    _, dup, agree = icf_ensemble.dedupe_rows(b.load_all())
+    assert (dup, agree) == (10, False)
+
+
+def test_icf_entry_on_the_cpu():
+    res = icf_ensemble.run_icf(CPU, 200, log=lambda line: None)
+    assert res["on_disk"] == res["rows"] == 200
+    assert res["duplicates_agree"]
+    assert res["passes"][-1] == 200 and res["n_aggregates"] >= 1
