@@ -8,8 +8,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   2. build: every CUDA source under src/repro_torch/kernels/csrc with nvcc
      for sm_90a, into build/ (flash_attention, flash_attention_bwd,
      wkv6_scan, ssd_scan); then the tensor-core instructions of each kernel
-     function (cuobjdump -sass), which every bf16 flash forward, WKV6 and
-     SSD instance must have (the backward's scalar kernels report 0);
+     function (cuobjdump -sass), which every bf16 instance of the flash
+     forward, the flash backward's tensor-core grid, WKV6 and SSD must have
+     (the fp32 kernels and the backward's D_i pass report 0);
   3. each kernel against its plain PyTorch version on the card, at the
      main paths' shapes and the edge cases, with the tolerance stated, and
      device times of kernel, plain version and PyTorch's own call (where
@@ -17,9 +18,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      flash backward (dq, dk, dv) is held to ref.flash_attention_bwd_ref on
      the forward kernel's output and log-sum-exp at BWD_SHAPES (jag's
      training shapes, zamba2's 512 shape, GQA, window + softcap, D 16 and
-     128, ragged S, two fp32 shapes), the autograd Function must give the
-     same gradients, and its library time is scaled_dot_product_attention's
-     backward;
+     128, ragged S, cross S != T, two fp32 shapes), in bf16 also to the
+     mirror of its rounding points ref.flash_attention_bwd_tc_ref; the
+     autograd Function must give the same gradients, and its library time
+     is scaled_dot_product_attention's backward;
   4. serve: jag-surrogate, rwkv6-3b and zamba2-1.2b at full width and full
      depth through ServeEngine (random weights from seed 0; batch 4,
      prompts of 32, 200 and 512 tokens, 32 new tokens each).  Every launch
@@ -338,8 +340,9 @@ def phase_build():
 def phase_sass():
     """Tensor-core instructions (HMMA, HGMMA) per kernel function of each
     built library, read from ``cuobjdump -sass``.  Every bf16 instance of
-    the three kernels must have some: their products run on the tensor
-    cores (4 flash head dims, 3 WKV head dims, 3 x 4 SSD P and N)."""
+    the four kernels must have some: their products run on the tensor
+    cores (4 flash forward and 4 flash backward head dims, 3 WKV head dims,
+    3 x 4 SSD P and N)."""
     nvcc = env.nvcc_path()
     tool = shutil.which("cuobjdump") or (
         os.path.join(os.path.dirname(nvcc), "cuobjdump") if nvcc else None)
@@ -360,11 +363,13 @@ def phase_sass():
                 counts[fn] += 1
     say("sass", tensor_core_instructions=counts)
     bf16 = [fn for fn in counts if "flash_fwd_bf16" in fn
+            or "flash_bwd_bf16" in fn
             or ("wkv6_kernel" in fn and "bfloat16" in fn)
             or "ssd_tc_kernel" in fn]
-    if len(bf16) != 19 or not all(counts[fn] for fn in bf16):
-        raise RuntimeError(f"bf16 flash / WKV6 / SSD instances without "
-                           f"tensor-core instructions: {counts}")
+    if len(bf16) != 23 or not all(counts[fn] for fn in bf16):
+        raise RuntimeError(f"bf16 flash forward / flash backward / WKV6 / "
+                           f"SSD instances without tensor-core instructions "
+                           f"(or not 23 of them): {counts}")
 
 
 def phase_flash(dev):
@@ -987,16 +992,20 @@ BWD_SHAPES = [
     ("D16", 1, 130, 130, 2, 1, 16, BF16, True, None, None),
     ("D128_gqa", 2, 200, 200, 8, 2, 128, BF16, True, None, None),
     ("ragged_100", 2, 100, 100, 4, 4, 64, BF16, True, None, None),
+    ("cross_S45_T83", 1, 45, 83, 4, 2, 64, BF16, False, None, None),
     ("f32_D64", 2, 256, 256, 4, 4, 64, F32, True, None, None),
     ("f32_window16_softcap30_gqa", 2, 100, 100, 4, 2, 32, F32, True, 16,
      30.0),
 ]
 BWD_MAIN = ("jag_train_128", "jag_bundles_8")
-BWD_TIMED = BWD_MAIN + ("zamba2_512",)
+BWD_TIMED = BWD_MAIN + ("zamba2_512", "D128_gqa")
 # max |kernel - plain| / max |plain| of dq, dk, dv: float32 sums in another
-# order; bf16 outputs are rounded once to 8 mantissa bits.  The forward's
-# log-sum-exp against flash_attention_lse_ref's: absolute, in nats.
+# order; the bf16 kernel rounds P and dS to bf16 as operands and its outputs
+# once.  Against the mirror of those rounding points (bf16 only) the rest
+# is the order of fp32 sums and a rounding tie flipped by it.  The
+# forward's log-sum-exp against flash_attention_lse_ref's: absolute, in nats.
 BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+BWD_TC_REL = 1e-2
 LSE_ATOL = 1e-3
 
 
@@ -1039,9 +1048,10 @@ def bwd_work(q, k, kw):
 
 def phase_flash_backward(dev):
     """The backward kernel against its plain version at every BWD_SHAPES
-    entry, from the forward kernel's output and log-sum-exp (held to its
-    plain version too); the autograd Function gives the same gradients as
-    the direct calls.  Timed at BWD_TIMED beside the forward with and
+    entry (bf16 also against the mirror of its rounding points), from the
+    forward kernel's output and log-sum-exp (held to its plain version
+    too); the autograd Function gives the same gradients as the direct
+    calls.  Timed at BWD_TIMED beside the forward with and
     without the log-sum-exp store and scaled_dot_product_attention's
     backward."""
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -1060,6 +1070,12 @@ def phase_flash_backward(dev):
         lse_err = float((lse - lse_plain).abs().max())
         rels = {g: _rel(a, b) for g, a, b in zip(("dq", "dk", "dv"), got,
                                                  want)}
+        rels_tc = {}
+        if dt == BF16:
+            mirror = ref.flash_attention_bwd_tc_ref(q, k, v, out, do, lse,
+                                                    **kw)
+            rels_tc = {g: _rel(a, b) for g, a, b in
+                       zip(("dq", "dk", "dv"), got, mirror)}
         err = max(float((a.float() - b.float()).abs().max())
                   for a, b in zip(got, want))
         qa, ka, va = (x.detach().requires_grad_() for x in (q, k, v))
@@ -1067,17 +1083,21 @@ def phase_flash_backward(dev):
         same = all(torch.equal(x.grad, g) for x, g in zip((qa, ka, va), got))
         ok = bool(all(torch.isfinite(g.float()).all() for g in got)
                   and max(rels.values()) < BWD_REL[dt]
+                  and max(rels_tc.values(), default=0.0) < BWD_TC_REL
                   and lse_err < LSE_ATOL and same)
         errs[name] = err
         say("kernel_vs_plain", kernel="flash_attention_bwd", shape=name,
             B=B, S=S, T=T, H=H, KV=KV, D=D, dtype=str(dt).split(".")[-1],
             causal=causal, window=window, softcap=softcap, max_abs_err=err,
-            rel_err=rels, rel_tol=BWD_REL[dt], lse_abs_err=lse_err,
+            rel_err=rels, rel_tol=BWD_REL[dt], tc_mirror_rel_err=rels_tc,
+            tc_mirror_rel_tol=BWD_TC_REL if rels_tc else None,
+            lse_abs_err=lse_err,
             lse_atol=LSE_ATOL, autograd_equals_direct=same, ok=ok)
         if not ok:
             raise RuntimeError(f"flash_attention_bwd disagrees with its plain "
-                               f"version at {name}: {rels}, lse {lse_err}, "
-                               f"autograd equal {same}")
+                               f"version at {name}: {rels}, mirror "
+                               f"{rels_tc}, lse {lse_err}, autograd equal "
+                               f"{same}")
         if name in BWD_TIMED:
             scale = 1.0 / D ** 0.5
             t = timing[name] = {

@@ -5,9 +5,10 @@ and its backward (``csrc/flash_attention_bwd.cu``).
 Same signature as the Pallas kernel: q (B,S,H,D), k/v (B,T,KV,D) ->
 (B,S,H,D) in q's dtype.  On a CUDA tensor it launches the kernels on the
 current stream or raises: bfloat16 runs on the tensor cores (mma.sync, P
-rounded to bf16; ``ref.flash_attention_tc_ref`` mirrors its rounding),
-float32 on scalar FMAs.  On a CPU tensor it runs the plain version
-(``ref.flash_attention_ref``), whose gradient is PyTorch's autograd.
+rounded to bf16; ``ref.flash_attention_tc_ref`` mirrors its rounding, and
+``ref.flash_attention_bwd_tc_ref`` the backward's), float32 on scalar FMAs.
+On a CPU tensor it runs the plain version (``ref.flash_attention_ref``),
+whose gradient is PyTorch's autograd.
 
 Gradients.  The Pallas kernel has no VJP; the reference differentiates its
 plain path.  Here, when grad is enabled and q, k or v requires it, a CUDA
@@ -22,7 +23,9 @@ the forward is one launch that stores no log-sum-exp, as serving runs it.
 alone (the card tests and ``chip_smoke.py`` hold them to their plain
 versions with them).  ``launches`` counts forward launches (a recompute under
 ``torch.utils.checkpoint`` counts again), ``bwd_launches`` backward calls
-(each one call of the C entry, which runs its two kernels).
+(each one call of the C entry, which runs two kernels: for bfloat16 the D_i
+pass and one tensor-core grid of dK/dV and dQ blocks, for float32 the
+scalar dQ and dK/dV kernels).
 """
 from __future__ import annotations
 
@@ -128,6 +131,12 @@ def _forward(q, k, v, scale, softcap_val, causal, window, q_pos0, lse=None):
     return out
 
 
+def _aligned16(t):
+    """``t``, or a copy that starts on a 16-byte boundary: the bf16 kernels
+    copy 16-byte chunks (a contiguous view at an odd offset is rare)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _backward(q, k, v, out, lse, dout, scale, softcap_val, causal, window):
     """One call of the backward kernel -> (dq, dk, dv) in the inputs' dtype."""
     global bwd_launches
@@ -136,6 +145,8 @@ def _backward(q, k, v, out, lse, dout, scale, softcap_val, causal, window):
     if dout.shape != out.shape or dout.dtype != out.dtype:
         raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} does not "
                          f"match out {tuple(out.shape)} {out.dtype}")
+    if q.dtype == torch.bfloat16:
+        q, k, v, out, dout = map(_aligned16, (q, k, v, out, dout))
     launch = _bwd_kernel()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)

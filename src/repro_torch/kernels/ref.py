@@ -9,7 +9,9 @@ mask.  ``flash_attention_tc_ref`` mirrors the bf16 tensor-core kernel's
 rounding points (the logits scaled after the product, P rounded to bf16).
 ``flash_attention_lse_ref`` adds the row log-sum-exp the forward kernel
 stores for training, and ``flash_attention_bwd_ref`` is the plain version of
-the backward kernel (dq, dk, dv from q, k, v, o, dO and that log-sum-exp).
+the backward kernel (dq, dk, dv from q, k, v, o, dO and that log-sum-exp);
+``flash_attention_bwd_tc_ref`` mirrors the bf16 backward kernel's rounding
+points (P and dS rounded to bf16 as operands).
 
 ``naive_attention`` is the O(S²) oracle, in the reference's own order (dot,
 then scale).  ``decode_attention_ref`` is one token against a cache; the
@@ -151,8 +153,31 @@ def flash_attention_bwd_ref(q, k, v, o, do, lse, *, causal=True, scale=None,
     row log-sum-exp ``lse`` (B,H,S), chunked over KV blocks in float32
     (FlashAttention-2's backward): D = rowsum(dO o O), P = exp(s - lse)
     (0 where masked), dV = P^T dO, dS = P o (dO V^T - D) times the softcap's
-    derivative, dQ = scale dS K, dK = scale dS^T Q.  The backward kernel
-    rounds nothing to bf16 inside, so this is its mirror for both dtypes."""
+    derivative, dQ = scale dS K, dK = scale dS^T Q.  Nothing is rounded
+    inside: the float32 kernel's mirror, and the bf16 kernel's yardstick."""
+    return _flash_bwd(q, k, v, o, do, lse, causal=causal, scale=scale,
+                      softcap_val=softcap_val, window=window, q_pos0=q_pos0,
+                      block_k=block_k, op_dtype=torch.float32)
+
+
+def flash_attention_bwd_tc_ref(q, k, v, o, do, lse, *, causal=True,
+                               scale=None, softcap_val=None, window=None,
+                               q_pos0=0, block_k=64):
+    """Plain mirror of the bf16 tensor-core backward kernel's rounding
+    points: the logits are float32 sums of q·k, then scaled; P is rounded to
+    q's dtype as the operand of Pᵀ·dO, and dS (from the unrounded P) as the
+    operand of dS·K and dSᵀ·Q; the outputs are rounded once.  For float32
+    inputs nothing is rounded and it is ``flash_attention_bwd_ref``.  No
+    training path calls it."""
+    return _flash_bwd(q, k, v, o, do, lse, causal=causal, scale=scale,
+                      softcap_val=softcap_val, window=window, q_pos0=q_pos0,
+                      block_k=block_k, op_dtype=q.dtype)
+
+
+def _flash_bwd(q, k, v, o, do, lse, *, causal, scale, softcap_val, window,
+               q_pos0, block_k, op_dtype):
+    """The backward, with P and dS rounded to ``op_dtype`` as the operands
+    of the three products they enter."""
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     g = H // KV
@@ -177,9 +202,11 @@ def flash_attention_bwd_ref(q, k, v, o, do, lse, *, causal=True, scale=None,
         kpos = start + torch.arange(kc.shape[1], device=q.device)[None, :]
         keep = _mask(qpos, kpos, causal, window)
         p = torch.where(keep, torch.exp(x - lse), 0.0)
-        dvs.append(torch.einsum("bkgst,bskgd->btkd", p, dof))
+        dvs.append(torch.einsum("bkgst,bskgd->btkd", p.to(op_dtype).float(),
+                                dof))
         dp = torch.einsum("bskgd,btkd->bkgst", dof, vc)
         ds = p * (dp - delta) * dcap
+        ds = ds.to(op_dtype).float()
         dq += torch.einsum("bkgst,btkd->bskgd", ds, kc) * scale
         dks.append(torch.einsum("bkgst,bskgd->btkd", ds, qf) * scale)
     return (dq.reshape(B, S, H, D).to(q.dtype),

@@ -430,9 +430,12 @@ def test_kernel_wrappers_refuse_grad(cuda_device):
         assert out.grad_fn is None
 
 
-# max |kernel - plain| / max |plain|: float32 sums in another order; bf16
-# outputs are rounded once to 8 mantissa bits
+# max |kernel - plain| / max |plain|: float32 sums in another order; the
+# bf16 kernel rounds P and dS to bf16 as operands and its outputs once, and
+# against ref.flash_attention_bwd_tc_ref, the mirror of those rounding
+# points, only the order of its fp32 sums is left
 BWD_REL = {"float32": 1e-4, "bfloat16": 2e-2}
+BWD_TC_REL = 1e-2
 
 
 @pytest.mark.parametrize("B,S,T,H,KV,D,dtype,causal,window,softcap", [
@@ -440,6 +443,9 @@ BWD_REL = {"float32": 1e-4, "bfloat16": 2e-2}
     (8, 8, 8, 4, 4, 64, "bfloat16", True, None, None),      # jag on bundles
     (2, 200, 200, 8, 2, 128, "bfloat16", True, None, None),
     (2, 300, 300, 4, 2, 32, "bfloat16", True, 64, 30.0),
+    (1, 130, 130, 2, 1, 16, "bfloat16", True, None, None),
+    (1, 33, 70, 4, 1, 64, "bfloat16", False, None, None),
+    (2, 100, 100, 4, 2, 64, "bfloat16", False, 24, None),
     (1, 130, 130, 2, 1, 16, "float32", True, None, None),
     (1, 33, 70, 4, 1, 64, "float32", False, None, None),
     (2, 100, 100, 4, 2, 64, "float32", True, 16, 30.0),
@@ -447,8 +453,9 @@ BWD_REL = {"float32": 1e-4, "bfloat16": 2e-2}
 def test_backward_kernel_vs_plain(cuda_device, B, S, T, H, KV, D, dtype,
                                   causal, window, softcap):
     """dq, dk, dv of the backward kernel against ref.flash_attention_bwd_ref
-    on the same q, k, v, o, dO and log-sum-exp (the forward kernel's, which
-    is held to flash_attention_lse_ref's)."""
+    (and in bf16 against ref.flash_attention_bwd_tc_ref) on the same q, k,
+    v, o, dO and log-sum-exp (the forward kernel's, which is held to
+    flash_attention_lse_ref's)."""
     q, k, v = _qkv(cuda_device, dtype, B, S, T, H, KV, D)
     rng = np.random.default_rng(9)
     do = torch.from_numpy(rng.standard_normal((B, S, H, D), dtype=np.float32)
@@ -465,6 +472,31 @@ def test_backward_kernel_vs_plain(cuda_device, B, S, T, H, KV, D, dtype,
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == b.dtype == TDT[dtype]
         assert _rel(a, b) < BWD_REL[dtype], name
+    if dtype == "bfloat16":
+        mirror = ref.flash_attention_bwd_tc_ref(q, k, v, out, do, lse, **kw)
+        for name, a, b in zip(("dq", "dk", "dv"), got, mirror):
+            assert _rel(a, b) < BWD_TC_REL, name
+
+
+def test_backward_takes_misaligned_bf16_views(cuda_device):
+    """The bf16 kernels copy 16-byte chunks; an input that is a contiguous
+    view at an odd offset is copied by the wrapper, not refused, and the
+    gradients equal the aligned call's."""
+    q, k, v = _qkv(cuda_device, "bfloat16", 2, 40, 40, 4, 2, 64)
+    do = _qkv(cuda_device, "bfloat16", 2, 40, 40, 4, 2, 64, seed=3)[0]
+    out, lse = fak.flash_attention_lse(q, k, v)
+
+    def shifted(t):
+        view = torch.empty(t.numel() + 1, dtype=t.dtype,
+                           device=t.device)[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16
+        return view
+    want = fak.flash_attention_bwd(q, k, v, out, lse, do)
+    got = fak.flash_attention_bwd(*map(shifted, (q, k, v, out)), lse,
+                                  shifted(do))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_backward_kernel_refuses_what_it_cannot_take(cuda_device):

@@ -6,8 +6,9 @@ The reference's attention gradient is ``jax.grad`` through its plain path
 The port's wrapper on a CPU tensor runs its plain version under PyTorch's
 autograd; on the card its gradient is the CUDA backward kernel, whose plain
 version ``ref.flash_attention_bwd_ref`` (with ``flash_attention_lse_ref``,
-the forward's row log-sum-exp) is held here to the port's autograd.  The
-kernel itself is checked on the card (tests/test_torch_cuda.py,
+the forward's row log-sum-exp) is held here to the port's autograd; the
+mirror of the bf16 kernel's rounding is tested in test_torch_flash_bwd_tc.py.
+The kernel itself is checked on the card (tests/test_torch_cuda.py,
 chip_smoke.py).  Inputs and the output gradient are made with numpy from a
 seed and handed to both frameworks.  float32: rel 1e-4 against JAX (max
 error over the largest magnitude), 1e-5 between the port's two forms.
@@ -104,10 +105,10 @@ def test_backward_plain_version_matches_autograd(case):
 
 @pytest.mark.parametrize("case", ["causal", "window16_softcap30", "gqa_4_2"])
 def test_backward_plain_version_in_bf16(case):
-    """The backward kernel widens bf16 inputs to float32 and rounds only
-    its outputs, so its plain version needs no separate bf16 mirror: on bf16
-    inputs (and the bf16 forward's output) it stays within rel 2e-2 of the
-    float32 form."""
+    """The plain backward on bf16 inputs (and the bf16 forward's output)
+    stays within rel 2e-2 of the float32 form, the bar the card holds the
+    bf16 kernel to against it (the kernel's own rounding points are
+    mirrored by ref.flash_attention_bwd_tc_ref: test_torch_flash_bwd_tc.py)."""
     B, S, T, H, KV, D, causal, window, softcap = CASES[case]
     q, k, v, do = (torch.from_numpy(a)
                    for a in _inputs(7, B, S, T, H, KV, D))
