@@ -7,28 +7,39 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   1. environment: versions, the card's name and power limit;
   2. build: every CUDA source under src/repro_torch/kernels/csrc with nvcc
      for sm_90a, into build/ (flash_attention, flash_attention_bwd,
-     wkv6_scan, ssd_scan); then the tensor-core instructions of each kernel
+     wkv6_scan, ssd_scan), where the D-192 flash forward instances must
+     report 0 spill bytes; then the tensor-core instructions of each kernel
      function (cuobjdump -sass), which every bf16 instance of the flash
-     forward, the flash backward's tensor-core grid, WKV6 and SSD must have
-     (the fp32 kernels and the backward's D_i pass report 0);
+     forward (D 16-192), the flash backward's tensor-core grid, WKV6 and
+     SSD must have, 24 in all (the fp32 kernels and the backward's D_i
+     pass report 0);
   3. each kernel against its plain PyTorch version on the card, at the
      main paths' shapes and the edge cases, with the tolerance stated, and
      device times of kernel, plain version and PyTorch's own call (where
-     one call computes the same function) beside the card's bound.  The
-     flash backward (dq, dk, dv) is held to ref.flash_attention_bwd_ref on
-     the forward kernel's output and log-sum-exp at BWD_SHAPES (jag's
+     one call computes the same function) beside the card's bound; the
+     flash forward also at phi4's GQA 24:8, gemma2's 6144-token local and
+     global layers (softcap 50: no library call) and deepseek's D-192 MLA
+     prefill.  The flash backward (dq, dk, dv) is held to
+     ref.flash_attention_bwd_ref on the forward kernel's output and
+     log-sum-exp at BWD_SHAPES (jag's
      training shapes, zamba2's 512 shape, GQA, window + softcap, D 16 and
      128, ragged S, cross S != T, two fp32 shapes), in bf16 also to the
      mirror of its rounding points ref.flash_attention_bwd_tc_ref; the
      autograd Function must give the same gradients, and its library time
      is scaled_dot_product_attention's backward;
-  4. serve: jag-surrogate, rwkv6-3b and zamba2-1.2b at full width and full
-     depth through ServeEngine (random weights from seed 0; batch 4,
-     prompts of 32, 200 and 512 tokens, 32 new tokens each).  Every launch
-     count is set to 0 just before each model's run and read just after;
-     the counts must be exact (jag 12 flash; rwkv6-3b 96 WKV; zamba2 99 SSD
-     and 15 flash), and the first-token logits are held against a run of
-     the plain versions;
+  4. serve: jag-surrogate, rwkv6-3b, zamba2-1.2b, phi4-mini-3.8b and
+     deepseek-v2-lite-16b at full width and full depth, gemma2-27b at full
+     width and 8 of its 46 layers, through ServeEngine (random weights from
+     seed 0; batch 4, prompts of 32, 200 and 512 tokens, 32 new tokens
+     each; gemma2: batch 1, one prompt of 6144 tokens, past its 4096
+     window).  Every launch count is set to 0 just before each model's run
+     and read just after; the counts must be exact (jag 12 flash; rwkv6-3b
+     96 WKV; zamba2 99 SSD and 15 flash; phi4 96, gemma2 8 and deepseek 81
+     flash, and 81 more for deepseek's run with int8 latent caches), and
+     the first-token logits are held against a run of the plain versions
+     (MoE layers at the kernel run's routes).  deepseek also holds its int8
+     caches' first decode step to the plain run's, and ``moe_impl="sort"``
+     to ``gshard``: first-token logits, and greedy tokens in float32;
   5. merlin: the Merlin loop as ``python -m repro_torch.launch.quickstart``
      runs it: 512 JAG samples through MerlinRuntime and a WorkerPool of 4
      workers, one CUDA graph a bucket in the EnsembleExecutor, into a
@@ -113,6 +124,7 @@ from repro_torch.kernels import flash_attention as fak  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssdk  # noqa: E402
 from repro_torch.kernels import wkv6_scan as wkvk  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 from repro_torch.core import active  # noqa: E402
 from repro_torch.data.pipeline import regression_dataset  # noqa: E402
@@ -157,10 +169,26 @@ SHAPES = [
     ("bf16_cross", 1, 33, 70, 4, 1, 64, BF16, False, None, None, 0),
     ("bf16_S1_q_pos0_100", 2, 1, 101, 4, 4, 64, BF16, True, None, None, 100),
     ("bf16_ragged_S45_T83", 1, 45, 83, 4, 2, 64, BF16, False, None, None, 0),
+    # phi4-mini-3.8b: GQA 24:8 at D 128
+    ("phi4_prefill_512", 4, 512, 512, 24, 8, 128, BF16, True, None, None, 0),
+    # gemma2-27b at a prompt past its window: local (window 4096) and global
+    # layers, attention softcap 50 on both
+    ("gemma2_local", 1, 6144, 6144, 32, 16, 128, BF16, True, 4096, 50.0, 0),
+    ("gemma2_global", 1, 6144, 6144, 32, 16, 128, BF16, True, None, 50.0, 0),
+    # deepseek-v2-lite's MLA prefill: q/k at qk_nope 128 + qk_rope 64, v
+    # zero-padded to 192
+    ("deepseek_mla_prefill_512", 4, 512, 512, 16, 16, 192, BF16, True, None,
+     None, 0),
+    ("f32_D192_ragged", 2, 77, 130, 4, 2, 192, F32, False, None, None, 0),
+    ("bf16_D192_window64_softcap30", 2, 300, 300, 4, 2, 192, BF16, True, 64,
+     30.0, 0),
+    ("bf16_D192_S1_q_pos0_100", 2, 1, 101, 4, 4, 192, BF16, True, None, None,
+     100),
 ]
 MAIN_PATH = ("jag_prefill_512", "jag_prefill_200", "jag_prefill_32",
-             "zamba2_prefill_512", "zamba2_prefill_200", "zamba2_prefill_32")
-PROMPT_LENS, BATCH, NEW_TOKENS = (32, 200, 512), 4, 32
+             "zamba2_prefill_512", "zamba2_prefill_200", "zamba2_prefill_32",
+             "phi4_prefill_512", "gemma2_local", "gemma2_global",
+             "deepseek_mla_prefill_512")
 # kernel -> (module, its launch counter); flash_attention_bwd is built from
 # csrc/flash_attention_bwd.cu and counted by the flash wrapper
 KERNELS = {"flash_attention": (fak, "launches"),
@@ -217,12 +245,33 @@ SSD_SHAPES = [
 SSD_MAIN = ("zamba2_prefill_512", "zamba2_prefill_200", "zamba2_prefill_32")
 # float32-compute serve run against its plain run: rounding only
 FP32_SERVE_REL = 1e-3
-# serve: arch -> the launches each prefill must make, per kernel
+
+
+def _serve(counts, batch=4, prompts=(32, 200, 512), new_tokens=32,
+           n_repeat=None):
+    """One model's serve run: ``counts(cfg)`` is the launches each prefill
+    must make, per kernel; ``n_repeat`` cuts the depth (None: full)."""
+    return {"counts": counts, "batch": batch, "prompts": prompts,
+            "new_tokens": new_tokens, "n_repeat": n_repeat}
+
+
 SERVE = {
-    "jag-surrogate": lambda cfg: {"flash_attention": cfg.n_layers},
-    "rwkv6-3b": lambda cfg: {"wkv6_scan": _count(cfg, "rwkv6")},
-    "zamba2-1.2b": lambda cfg: {"ssd_scan": _count(cfg, "mamba2"),
-                                "flash_attention": _count(cfg, "shared_attn")},
+    "jag-surrogate": _serve(lambda cfg: {"flash_attention": cfg.n_layers}),
+    "rwkv6-3b": _serve(lambda cfg: {"wkv6_scan": _count(cfg, "rwkv6")}),
+    "zamba2-1.2b": _serve(lambda cfg: {
+        "ssd_scan": _count(cfg, "mamba2"),
+        "flash_attention": _count(cfg, "shared_attn")}),
+    "phi4-mini-3.8b": _serve(lambda cfg: {
+        "flash_attention": _count(cfg, "attn")}),
+    # full width; 46 layers are ~104 GB of float32 weights, so the depth is
+    # cut to 4 superblocks (4 local + 4 global layers).  One prompt past the
+    # 4096 window: the window mask, the local caches' roll at prefill and
+    # decode past the window run on the card.
+    "gemma2-27b": _serve(lambda cfg: {"flash_attention": _count(cfg, "attn")},
+                         batch=1, prompts=(6144,), n_repeat=4),
+    # full width and depth (~62 GB of float32 weights); MLA + MoE
+    "deepseek-v2-lite-16b": _serve(lambda cfg: {
+        "flash_attention": _count(cfg, "mla")}),
 }
 
 
@@ -261,6 +310,14 @@ def valid_pairs(S, T, causal, window, q_pos0):
     return n
 
 
+def _sdpa(qt, kt, vt, causal, scale):
+    """scaled_dot_product_attention on (B,H,S,D) views; GQA when the KV
+    heads are fewer."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, scale=scale,
+        enable_gqa=qt.shape[1] != kt.shape[1])
+
+
 def sdpa_backends(qt, kt, vt, causal, scale):
     """Device ms of scaled_dot_product_attention restricted to each backend
     (None where the backend refuses these inputs), to say which one its
@@ -273,8 +330,7 @@ def sdpa_backends(qt, kt, vt, causal, scale):
 
         def call():
             with sdpa_kernel([backend]):
-                torch.nn.functional.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, scale=scale)
+                _sdpa(qt, kt, vt, causal, scale)
         try:
             call()
             torch.cuda.synchronize()
@@ -288,7 +344,8 @@ def sdpa_backends(qt, kt, vt, causal, scale):
 def time_kernel(q, k, v, out, kw):
     """Device times of the kernel, its plain version and PyTorch's own
     attention call on the same inputs (by default and per backend), beside
-    the card's bound."""
+    the card's bound.  No one PyTorch call applies a softcap or a window,
+    so those shapes have no library time (None)."""
     B, S, H, D = q.shape
     T = k.shape[1]
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -297,19 +354,26 @@ def time_kernel(q, k, v, out, kw):
                                         kw["q_pos0"])
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    # a long prompt's plain version takes tens of ms a call
+    rounds, reps = (3, 5) if S * T > 2 ** 24 else (7, 20)
+    library = kw["softcap_val"] is None and kw["window"] is None
+    scale = 1.0 / D ** 0.5
     t = {
-        "ms": device_ms(lambda: fak.flash_attention(q, k, v, **kw)),
-        "plain_ms": device_ms(lambda: ref.flash_attention_ref(q, k, v, **kw)),
+        "ms": device_ms(lambda: fak.flash_attention(q, k, v, **kw),
+                        rounds, reps),
+        "plain_ms": device_ms(lambda: ref.flash_attention_ref(q, k, v, **kw),
+                              rounds, reps),
         "library_ms": device_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=kw["causal"], scale=1.0 / D ** 0.5)),
-        "library_backend_ms": sdpa_backends(qt, kt, vt, kw["causal"],
-                                            1.0 / D ** 0.5),
+            lambda: _sdpa(qt, kt, vt, kw["causal"], scale), rounds, reps)
+        if library else None,
+        "library_backend_ms": sdpa_backends(qt, kt, vt, kw["causal"], scale)
+        if library else None,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes, "flops": flops}
     t["kernel_over_bound"] = t["ms"] / t["bound_ms"]
-    t["kernel_over_library"] = t["ms"] / t["library_ms"]
+    t["kernel_over_library"] = (t["ms"] / t["library_ms"] if library
+                                else None)
     return t
 
 
@@ -330,18 +394,34 @@ def phase_build():
             if "spill" in line or ("ptxas info" in line and (
                     "registers" in line or "Compiling" in line)):
                 print(f"[build] {name}: {line.strip()}", flush=True)
+    # the D-192 flash forward instances (MLA's prefill) must not spill: ptxas
+    # prints an entry's spills on the line after its name
+    spills, entry = {}, None
+    for line in _build.logs.get("flash_attention", "").splitlines():
+        found = re.search(r"entry function '(\S*flash_fwd_\w+ILi192E\S*)'",
+                          line)
+        if found:
+            entry = found.group(1)
+        elif entry and "spill" in line:
+            spills[entry] = [int(n) for n in re.findall(
+                r"(\d+) bytes spill", line)]
+            entry = None
     say("build", seconds=round(secs, 3), libraries=sorted(libs),
-        built_now=sorted(_build.logs))
+        built_now=sorted(_build.logs), d192_spill_bytes=spills)
     missing = sorted(set(KERNELS) - set(libs))
     if missing:
         raise RuntimeError(f"libraries missing after build: {missing}")
+    if "flash_attention" in _build.logs and (
+            len(spills) != 2 or any(any(v) for v in spills.values())):
+        raise RuntimeError(f"the D-192 flash forward instances spill (or "
+                           f"were not reported): {spills}")
 
 
 def phase_sass():
     """Tensor-core instructions (HMMA, HGMMA) per kernel function of each
     built library, read from ``cuobjdump -sass``.  Every bf16 instance of
     the four kernels must have some: their products run on the tensor
-    cores (4 flash forward and 4 flash backward head dims, 3 WKV head dims,
+    cores (5 flash forward and 4 flash backward head dims, 3 WKV head dims,
     3 x 4 SSD P and N)."""
     nvcc = env.nvcc_path()
     tool = shutil.which("cuobjdump") or (
@@ -366,10 +446,10 @@ def phase_sass():
             or "flash_bwd_bf16" in fn
             or ("wkv6_kernel" in fn and "bfloat16" in fn)
             or "ssd_tc_kernel" in fn]
-    if len(bf16) != 23 or not all(counts[fn] for fn in bf16):
+    if len(bf16) != 24 or not all(counts[fn] for fn in bf16):
         raise RuntimeError(f"bf16 flash forward / flash backward / WKV6 / "
                            f"SSD instances without tensor-core instructions "
-                           f"(or not 23 of them): {counts}")
+                           f"(or not 24 of them): {counts}")
 
 
 def phase_flash(dev):
@@ -528,34 +608,155 @@ def _free():
     torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def _routes(record=None, replay=None):
+    """Record the MoE layers' expert choices of a run (appended to the list
+    ``record``, one (G,T,k) tensor a layer call) or replay those of another
+    run (``replay``), whose gates are then this run's own router
+    probabilities at the replayed experts.  The top-k choice is
+    discontinuous: two bf16 runs that differ by rounding pick other experts
+    for near-tied tokens, and a deep model carries that far past any
+    rounding bar.  At the same routes two runs differ by rounding alone.
+    Models without MoE layers never reach the router."""
+    orig = MOE._route
+    pinned = iter(replay) if replay is not None else None
+
+    def route(p, xf, cfg):
+        ids, gates, aux = orig(p, xf, cfg)
+        if pinned is not None:
+            ids = next(pinned)
+            probs = torch.softmax((xf @ p.w_router.to(xf.dtype)).float(), -1)
+            g = probs.gather(-1, ids)
+            gates = g / torch.clamp_min(g.sum(-1, keepdim=True), 1e-9)
+        if record is not None:
+            record.append(ids)
+        return ids, gates, aux
+    MOE._route = route
+    try:
+        yield
+    finally:
+        MOE._route = orig
+
+
+def _flips(a, b):
+    """(token, slot) routing choices on which two recorded runs differ."""
+    return sum(int((x != y).sum()) for x, y in zip(a, b))
+
+
+def _serve_int8(cfg, params, requests, max_len, new_tokens, want, bf16_decode):
+    """deepseek's second run: MLA's latent and rope-key caches in int8.
+    The prefill attends within its chunk, so the first decode step is the
+    first to read the int8 cache; its logits are held to the plain run's
+    through int8 caches of its own.  Returns (launches, line, failures)."""
+    eng = ServeEngine(cfg, params, max_len=max_len, cache_dtype=torch.int8)
+    plain = ServeEngine(cfg.replace(use_pallas="never"), params,
+                        max_len=max_len, cache_dtype=torch.int8)
+    _zero_launches()
+    outs = [eng.generate(t, new_tokens) for t in requests]
+    launches = _launches()
+    failures = [] if launches == want else [
+        f"int8 cache: kernel launches {launches}, expected {want}"]
+    rels, vs_bf16 = [], []
+    for t, ld16 in zip(requests, bf16_decode):
+        rec = []
+        with _routes(record=rec):
+            lk, ck = eng.prefill_fn(params, t)
+            tok = lk[:, -1].argmax(-1)[:, None]
+            ld, _ = eng.decode_fn(params, tok, ck)
+        with _routes(replay=rec):
+            lp, cp = plain.prefill_fn(params, t)
+            lpd, _ = plain.decode_fn(params, tok, cp)
+        if not all(c[k].dtype == torch.int8 for c in ck["layers"]
+                   for k in ("latent", "k_rope")):
+            failures.append("int8 cache: a latent cache is not int8")
+        if not torch.isfinite(ld.float()).all():
+            failures.append("int8 cache: non-finite decode logits")
+        rels.append(_rel(ld, lpd))
+        vs_bf16.append(_rel(ld, ld16))
+        if rels[-1] > 5e-2:
+            failures.append(f"int8 cache: decode logits differ from the plain "
+                            f"run by rel {rels[-1]} at prompt {t.shape[1]}")
+    for out in outs:
+        if tuple(out.shape) != (requests[0].shape[0], new_tokens):
+            failures.append(f"int8 cache: generated shape {tuple(out.shape)}")
+    s = eng.stats
+    line = {"int8_cache_launches": {COUNT_KEYS[n]: k
+                                    for n, k in launches.items()},
+            "int8_first_decode_rel_err": rels, "int8_rel_tol": 5e-2,
+            "int8_vs_bf16_cache_decode_rel": vs_bf16,
+            "int8_prefill_tok_per_s": s["prefill_tokens"] / s["prefill_s"],
+            "int8_decode_tok_per_s": s["decode_tokens"] / s["decode_s"]}
+    return launches, line, failures
+
+
+def _serve_sort(cfg, params, eng, requests, max_len, new_tokens, bf16_tokens):
+    """deepseek's MoE by ``moe_impl="sort"`` against the served ``gshard``:
+    first-token logits at the same routes (bf16 bar), and greedy tokens in
+    float32 compute at the longest prompt, which must be equal.  The bf16
+    tokens' agreement is reported.  Returns (line, failures)."""
+    sort = ServeEngine(cfg.replace(moe_impl="sort"), params, max_len=max_len)
+    rels, failures = [], []
+    for t in requests:
+        rec = []
+        with _routes(record=rec):
+            lg, _ = eng.prefill_fn(params, t)
+        with _routes(replay=rec):
+            ls, _ = sort.prefill_fn(params, t)
+        rels.append(_rel(ls, lg))
+        if rels[-1] > 5e-2:
+            failures.append(f"sort: first-token logits differ from gshard's "
+                            f"by rel {rels[-1]} at prompt {t.shape[1]}")
+    bf16_sort = sort.generate(requests[-1], new_tokens)
+    cfg32 = cfg.replace(compute_dtype="float32")
+    t32 = {impl: ServeEngine(cfg32.replace(moe_impl=impl), params,
+                             max_len=max_len).generate(requests[-1], new_tokens)
+           for impl in ("gshard", "sort")}
+    equal32 = bool(torch.equal(t32["gshard"], t32["sort"]))
+    if not equal32:
+        failures.append("sort: float32 greedy tokens differ from gshard's")
+    line = {"sort_first_token_rel_err": rels, "sort_rel_tol": 5e-2,
+            "sort_fp32_greedy_tokens_equal": equal32,
+            "sort_bf16_greedy_token_agreement": float(
+                (bf16_sort == bf16_tokens).float().mean())}
+    return line, failures
+
+
 @torch.inference_mode()
 def phase_serve(dev, arch):
-    """Serve one model at full width and depth; returns its launch counts."""
-    cfg = registry.get_config(arch)
+    """Serve one model at full width (and full depth unless SERVE cuts it);
+    returns its launch counts.  Every check runs before the first failure
+    is raised, so the serve line holds all of them."""
+    t_phase = time.monotonic()
+    opt = SERVE[arch]
+    batch, prompts, new_tokens = opt["batch"], opt["prompts"], opt["new_tokens"]
+    full = registry.get_config(arch)
+    cfg = full if opt["n_repeat"] is None else full.replace(
+        n_repeat=opt["n_repeat"], n_layers=len(full.prologue)
+        + len(full.superblock) * opt["n_repeat"])
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    max_len = max(PROMPT_LENS) + NEW_TOKENS + 8
+    max_len = max(prompts) + new_tokens + 8
     eng = ServeEngine(cfg, params, max_len=max_len)
     gen = torch.Generator(device=dev).manual_seed(1)
-    requests = [torch.randint(0, cfg.vocab_size, (BATCH, n), generator=gen,
-                              device=dev) for n in PROMPT_LENS]
+    requests = [torch.randint(0, cfg.vocab_size, (batch, n), generator=gen,
+                              device=dev) for n in prompts]
     eng.generate(requests[0][:, :8], 2)  # warm-up: library handles, allocator
     eng.stats = {k: type(v)() for k, v in eng.stats.items()}
 
     _zero_launches()
-    outs = [eng.generate(t, NEW_TOKENS) for t in requests]
+    outs = [eng.generate(t, new_tokens) for t in requests]
     launches = _launches()
 
-    per_prefill = SERVE[arch](cfg)
-    want = {name: len(PROMPT_LENS) * per_prefill.get(name, 0)
-            for name in KERNELS}
+    per_prefill = opt["counts"](cfg)
+    want = {name: len(prompts) * per_prefill.get(name, 0) for name in KERNELS}
+    failures = []
     if launches != want:
-        raise RuntimeError(f"{arch}: kernel launches {launches} in the serve "
-                           f"run, expected {want}")
+        failures.append(f"kernel launches {launches} in the serve run, "
+                        f"expected {want}")
     for t, out in zip(requests, outs):
-        if tuple(out.shape) != (BATCH, NEW_TOKENS):
-            raise RuntimeError(f"generated shape {tuple(out.shape)}")
+        if tuple(out.shape) != (batch, new_tokens):
+            failures.append(f"generated shape {tuple(out.shape)}")
         if int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
-            raise RuntimeError("generated tokens out of vocabulary range")
+            failures.append("generated tokens out of vocabulary range")
 
     # The plain versions the kernels are held to: for rwkv6 the chunked WKV
     # algorithm the kernel computes.  A deep random-weight model amplifies
@@ -563,58 +764,95 @@ def phase_serve(dev, arch):
     # plain versions (rwkv6: blocked, which rounds its operands to bf16, and
     # chunked), the distance between those two, whichever is larger.  A
     # float32-compute run at the longest prompt holds the kernels' arithmetic
-    # end to end at FP32_SERVE_REL.
+    # end to end at FP32_SERVE_REL.  MoE models compare at the kernel run's
+    # routes (_routes); the plain run's own routes are reported beside.
     plain = ServeEngine(cfg.replace(use_pallas="never", wkv_impl="chunked"),
                         params, max_len=max_len)
     blocked = (ServeEngine(cfg.replace(use_pallas="never"), params,
                            max_len=max_len)
                if cfg.wkv_impl == "blocked" else None)
-    rels, bars = [], []
+    moe = bool(cfg.n_experts)
+    rels, bars, free_rels, flips, decode_logits = [], [], [], [], []
     for t in requests:
-        lk, caches = eng.prefill_fn(params, t)
+        rec = []
+        with _routes(record=rec):
+            lk, caches = eng.prefill_fn(params, t)
         before = _launches()
-        lp, _ = plain.prefill_fn(params, t)
+        with _routes(replay=rec):
+            lp, _ = plain.prefill_fn(params, t)
         lb = blocked.prefill_fn(params, t)[0].float() if blocked else None
+        if moe:
+            free = []
+            with _routes(record=free):
+                lf, _ = plain.prefill_fn(params, t)
+            free_rels.append(_rel(lk, lf))
+            flips.append(_flips(rec, free))
         if _launches() != before:
-            raise RuntimeError("the plain run launched a kernel")
+            failures.append("the plain run launched a kernel")
         ld, _ = eng.decode_fn(params, lk[:, -1].argmax(-1)[:, None], caches)
+        decode_logits.append(ld)
         lk, lp, ld = lk.float(), lp.float(), ld.float()
         if not (torch.isfinite(lk).all() and torch.isfinite(ld).all()):
-            raise RuntimeError("non-finite logits")
+            failures.append("non-finite logits")
         rel = _rel(lk, lp)
         bar = max(5e-2, _rel(lb, lp)) if lb is not None else 5e-2
         rels.append(rel)
         bars.append(bar)
         if rel > bar:
-            raise RuntimeError(f"{arch}: first-token logits differ from the "
-                               f"plain run by rel {rel} > {bar} at prompt "
-                               f"{t.shape[1]}")
+            failures.append(f"first-token logits differ from the plain run "
+                            f"by rel {rel} > {bar} at prompt {t.shape[1]}")
+    del caches
     cfg32 = cfg.replace(compute_dtype="float32")
+    rec = []
     before = _launches()
-    lk32 = ServeEngine(cfg32, params, max_len=max_len).prefill_fn(
-        params, requests[-1])[0]
+    with _routes(record=rec):
+        lk32 = ServeEngine(cfg32, params, max_len=max_len).prefill_fn(
+            params, requests[-1])[0]
     ran = {name: n - before[name] for name, n in _launches().items()}
-    if ran != {name: n // len(PROMPT_LENS) for name, n in want.items()}:
-        raise RuntimeError(f"the float32 run launched {ran}")
-    lp32 = ServeEngine(cfg32.replace(use_pallas="never", wkv_impl="chunked"),
-                       params, max_len=max_len).prefill_fn(params, requests[-1])[0]
+    if ran != {name: n // len(prompts) for name, n in want.items()}:
+        failures.append(f"the float32 run launched {ran}")
+    with _routes(replay=rec):
+        lp32 = ServeEngine(cfg32.replace(use_pallas="never",
+                                         wkv_impl="chunked"),
+                           params, max_len=max_len).prefill_fn(
+                               params, requests[-1])[0]
     rel32 = _rel(lk32, lp32)
     if not rel32 < FP32_SERVE_REL:
-        raise RuntimeError(f"{arch}: float32 first-token logits differ from "
-                           f"the plain run by rel {rel32}")
+        failures.append(f"float32 first-token logits differ from the plain "
+                        f"run by rel {rel32}")
     s = eng.stats
-    say("serve", arch=cfg.arch_id, batch=BATCH, prompt_lens=list(PROMPT_LENS),
-        new_tokens=NEW_TOKENS, n_layers=cfg.n_layers, d_model=cfg.d_model,
+    line = dict(
+        arch=cfg.arch_id, batch=batch, prompt_lens=list(prompts),
+        new_tokens=new_tokens, n_layers=cfg.n_layers,
+        full_depth_n_layers=full.n_layers,
+        d_model=cfg.d_model,
         **{COUNT_KEYS[name]: n for name, n in launches.items()},
         expected_launches=want, first_token_rel_err=rels, rel_tol=bars,
         fp32_first_token_rel_err=rel32, fp32_rel_tol=FP32_SERVE_REL,
         prefill_tok_per_s=s["prefill_tokens"] / s["prefill_s"],
         decode_tok_per_s=s["decode_tokens"] / s["decode_s"],
-        stats=s, max_memory_allocated=torch.cuda.max_memory_allocated(),
-        measured_on=torch.cuda.get_device_name(0),
-        nvidia_smi=env.nvidia_smi_line())
-    del eng, plain, blocked, params, caches
+        stats=s)
+    if moe:
+        line.update(routes_replayed=True,
+                    first_token_rel_err_own_routes=free_rels,
+                    route_flips_own_routes=flips)
+    if _count(cfg, "mla"):
+        n8, extra, bad = _serve_int8(cfg, params, requests, max_len,
+                                     new_tokens, want, decode_logits)
+        line.update(extra)
+        failures += bad
+        launches = {name: launches[name] + n8[name] for name in KERNELS}
+    if moe:
+        extra, bad = _serve_sort(cfg, params, eng, requests, max_len,
+                                 new_tokens, outs[-1])
+        line.update(extra)
+        failures += bad
+    say("serve", **line, max_memory_allocated=torch.cuda.max_memory_allocated(),
+        phase_s=time.monotonic() - t_phase, failures=failures, **_card())
+    del eng, plain, blocked, params
     _free()
+    if failures:
+        raise RuntimeError(f"{arch}: " + "; ".join(failures))
     return launches
 
 

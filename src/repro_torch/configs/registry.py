@@ -13,8 +13,12 @@ from typing import Any, Dict
 from repro_torch.configs.base import ModelConfig
 
 ARCHS = {
+    "arctic-480b": "repro_torch.configs.arctic_480b",
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
+    "gemma2-27b": "repro_torch.configs.gemma2_27b",
     "granite-3-8b": "repro_torch.configs.granite_3_8b",
     "jag-surrogate": "repro_torch.configs.jag_surrogate",
+    "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
     "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
     "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
 }

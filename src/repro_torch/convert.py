@@ -10,7 +10,12 @@ array) and returns the port's ``LM`` holding the same values:
   * ``blocks[i]`` holds superblock position i stacked over ``n_repeat``:
     row r of each leaf is layer ``len(prologue) + r * len(superblock) + i``,
     whose leaves (``norm1``, ``attn``, ``norm2``, ``mlp``, ``rwkv``,
-    ``mamba``) map by name.  A ``shared_attn`` layer holds only the
+    ``mamba``; ``norm1_post`` and ``norm2_post`` under sandwich norms; the
+    MLA keys ``attn.wkv_a``, ``attn.wk_rope``, ``attn.kv_norm``,
+    ``attn.wk_b``, ``attn.wv_b``; the MoE keys ``mlp.w_router``,
+    ``mlp.experts_w{i,g,o}`` (stacked (n_repeat, E, ...)) and
+    ``mlp.shared.*``; ``res_mlp.*`` beside a dense-residual MoE) map by
+    name.  A ``shared_attn`` layer holds only the
     ``norm1`` the reference gives it, which nothing reads; it is loaded
     like any other leaf, so ``strict=True`` holds both trees to one set of
     names.

@@ -42,6 +42,18 @@
 //   it keeps P in fp32 for P V (:63-64), this kernel rounds P to bf16 (l
 //   sums the unrounded P).  ref.flash_attention_tc_ref mirrors both.
 //
+// Head dims 16, 32, 64, 128 and 192.  D 192 is MLA's prefill (deepseek-v2-lite:
+// q and k are qk_nope 128 + qk_rope 64, v is zero-padded to 192 by the
+// caller).  There the bf16 kernel's O accumulator alone is 96 fp32
+// registers a thread, so the Q fragments are not kept in registers: each
+// k-step reads them from the Q tile in shared memory with ldmatrix (Q stays
+// there for the whole KV loop anyway).  Q plus two K/V stages are 128,000
+// bytes of shared memory, so one block runs on an SM and the launch bound
+// promises only that.  The fp32 kernel needs 164,608 bytes at D 192, which
+// launch_with opts in to like every other instance.  The backward kernel
+// (flash_attention_bwd.cu) stops at D 128; the wrapper refuses D 192 under
+// grad.
+//
 // fp32 (dtype 0): scalar fp32 FMAs (flash_fwd_f32_kernel), the design of the
 //   first port: 128 threads as a 16 x 8 grid, 4 rows x 8 keys of the score
 //   tile each, Q/K/V and P staged in shared memory as fp32.  TF32 would
@@ -57,7 +69,11 @@
 // at jag's shape only B*H*S/64 = 128 blocks of 4 warps (one wave under 132
 // SMs).  Splitting the KV axis across blocks with a combine pass is the
 // later fix for small grids; wgmma with TMA and a producer warp the later
-// fix for long sequences.
+// fix for long sequences.  Those come on gemma2-27b's 6144-token prefill
+// (H=32, KV=16, D=128, softcap 50; window 4096 on the local layers): 310 /
+// 275 GFLOP (global / local) over 151 MB, so the tensor-core term (0.31 /
+// 0.28 ms) bounds it.  deepseek-v2-lite's MLA prefill at 4 x 512 (H=16,
+// D=192) is 6.5 GFLOP over 50 MB, memory-bound like jag's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -277,9 +293,10 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   }
 }
 
-// 4 blocks an SM (<= 128 registers a thread) up to D = 64, 2 at D = 128.
+// 4 blocks an SM (<= 128 registers a thread) up to D = 64, 2 at D = 128,
+// 1 at D = 192 (shared memory allows no more).
 template <int D>
-__global__ void __launch_bounds__(NT, D <= 64 ? 4 : 2)
+__global__ void __launch_bounds__(NT, D <= 64 ? 4 : (D <= 128 ? 2 : 1))
     flash_fwd_bf16_kernel(const Params p) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   using bf16 = __nv_bfloat16;
@@ -287,6 +304,9 @@ __global__ void __launch_bounds__(NT, D <= 64 ? 4 : 2)
   constexpr int KD = D / 16;   // k-steps of Q K^T
   constexpr int NS = BK / 8;   // n-tiles of the score tile
   constexpr int ND = D / 8;    // n-tiles of the output
+  // Q fragments held in registers for the KV loop; above D 128 they are
+  // read from shared memory at each k-step instead (register pressure)
+  constexpr bool QREG = D <= 128;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // BQ x LD
   bf16* Ks = Qs + BQ * LD;                       // 2 stages of BK x LD
@@ -330,7 +350,7 @@ __global__ void __launch_bounds__(NT, D <= 64 ? 4 : 2)
   // this thread's two rows of the tile: r0 = 16 * warp + g and r0 + 8
   const int r0 = 16 * warp + g;
   const int qpos0 = p.q_pos0 + q0 + r0;
-  uint32_t qf[KD][4];
+  uint32_t qf[QREG ? KD : 1][4];
   float o[ND][4];
   float m[2] = {NEG_INF, NEG_INF};
   float l[2] = {0.f, 0.f};
@@ -350,11 +370,13 @@ __global__ void __launch_bounds__(NT, D <= 64 ? 4 : 2)
       load_tile<D, LD>(vd, vb, kv_row, k0 + BK, BK, p.T);
       tc::cp_async_commit();
     }
-    if (j == 0) {
+    if constexpr (QREG) {
+      if (j == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
-        tc::ldsm_x4(qf[kk], Qs + (16 * warp + lane % 16) * LD + kk * 16 +
-                                (lane / 16) * 8);
+        for (int kk = 0; kk < KD; ++kk)
+          tc::ldsm_x4(qf[kk], Qs + (16 * warp + lane % 16) * LD + kk * 16 +
+                                  (lane / 16) * 8);
+      }
     }
     const bf16* Kt = Ks + (j & 1) * BK * LD;
     const bf16* Vt = Vs + (j & 1) * BK * LD;
@@ -366,15 +388,20 @@ __global__ void __launch_bounds__(NT, D <= 64 ? 4 : 2)
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[n][c] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk)
+    for (int kk = 0; kk < KD; ++kk) {
+      if constexpr (!QREG)
+        tc::ldsm_x4(qf[0], Qs + (16 * warp + lane % 16) * LD + kk * 16 +
+                               (lane / 16) * 8);
+      const uint32_t(&qa)[4] = qf[QREG ? kk : 0];
 #pragma unroll
       for (int np = 0; np < NS / 2; ++np) {
         uint32_t kf[4];
         tc::ldsm_x4(kf, Kt + (np * 16 + (lane / 16) * 8 + lane % 8) * LD +
                             kk * 16 + ((lane / 8) % 2) * 8);
-        tc::mma_bf16(s[2 * np], qf[kk], kf[0], kf[1]);
-        tc::mma_bf16(s[2 * np + 1], qf[kk], kf[2], kf[3]);
+        tc::mma_bf16(s[2 * np], qa, kf[0], kf[1]);
+        tc::mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
       }
+    }
 
     // scale, softcap, mask, in log2 units (x log2 e) so that each
     // exponential is one ex2; the row max over the quad
@@ -520,6 +547,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     case 32: err = launch<32>(p, dtype, st); break;
     case 64: err = launch<64>(p, dtype, st); break;
     case 128: err = launch<128>(p, dtype, st); break;
+    case 192: err = launch<192>(p, dtype, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -4,9 +4,15 @@ LLM serving (batched prefill + decode on the card, with throughput and the
 launches of each CUDA kernel):
 
   PYTHONPATH=src python -m repro_torch.launch.serve \
-      --arch {jag-surrogate,rwkv6-3b,zamba2-1.2b} [--full] [--device cpu]
+      --arch {jag-surrogate,granite-3-8b,phi4-mini-3.8b,gemma2-27b,
+              deepseek-v2-lite-16b,arctic-480b,rwkv6-3b,zamba2-1.2b} \
+      [--full] [--batch N] [--prompt-len N] [--new-tokens N] [--device cpu]
 
 ``--device cpu`` runs on the CPU through the plain versions of the kernels.
+Without ``--full`` the config is the reduced one.  As in the reference
+there is no flag for depth or cache dtype: ``--full`` is the published
+depth (arctic-480b's ~54 GB of float32 weights a layer do not fit one
+80 GB card).
 
 The Merlin CLIs are the reference's, with the same flags and output:
 

@@ -1,12 +1,16 @@
-"""Core neural layers (port of ``repro/models/layers.py``, dense subset):
-norms, RoPE, the GLU MLP and GQA attention (with the reference's ``d_in``).
+"""Core neural layers (port of ``repro/models/layers.py``): norms, RoPE, the
+GLU MLP, GQA attention (with the reference's ``d_in``), the int8 cache
+helpers and MLA (DeepSeek multi-head latent attention).
 
 Parameters live in ``nn.Module``s whose attribute names are the reference's
 dict keys (``p.wq`` for ``p["wq"]``); the math is plain functions on
 tensors, as in the reference.  Public layouts are the reference's:
 activations (B, S, D), heads (B, S, H, Dh).  Attention's inner
 softmax(QK^T)V runs through :mod:`repro_torch.kernels.ops`, which launches
-the CUDA flash kernel for CUDA tensors.
+the CUDA flash kernel for CUDA tensors; MLA's prefill does too, at head dim
+qk_nope + qk_rope (192 for deepseek-v2-lite) with V zero-padded to it, and
+its decode is the reference's plain einsums (the reference has no Pallas
+decode either).
 """
 from __future__ import annotations
 
@@ -172,4 +176,133 @@ def init_attn_cache(cfg: ModelConfig, batch, max_len, dtype, device):
     return {
         "k": torch.zeros((batch, max_len, KV, Dh), dtype=dtype, device=device),
         "v": torch.zeros((batch, max_len, KV, Dh), dtype=dtype, device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# quantized-cache helpers (int8 serving caches)
+# ---------------------------------------------------------------------------
+
+CACHE_QSCALE = 40.0  # static scale: post-RMSNorm latents / roped keys ~ O(1)
+
+
+def cache_store(x, dtype):
+    """``x`` as the cache's dtype; int8 is round(x * 40) clipped to +-127
+    (``torch.round`` rounds half to even, as ``jnp.round``)."""
+    if dtype == torch.int8:
+        return torch.clamp(torch.round(x.float() * CACHE_QSCALE),
+                           -127, 127).to(torch.int8)
+    return x.to(dtype)
+
+
+def cache_load(x, cdt):
+    """The cache in the compute dtype; int8 times 1/40 rounded to ``cdt``
+    first, as the reference's weakly typed scalar is."""
+    if x.dtype == torch.int8:
+        return x.to(cdt) * torch.tensor(1.0 / CACHE_QSCALE, dtype=cdt,
+                                        device=x.device)
+    return x.to(cdt)
+
+
+# ---------------------------------------------------------------------------
+# MLA -- DeepSeek-V2 multi-head latent attention
+# ---------------------------------------------------------------------------
+
+class MLA(nn.Module):
+    def __init__(self, gen, cfg: ModelConfig, device):
+        super().__init__()
+        d, H = cfg.d_model, cfg.n_heads
+        r, dr = cfg.kv_lora_rank, cfg.qk_rope_dim
+        dn, dv = cfg.qk_nope_dim, cfg.v_head_dim
+        dt = dtype_of(cfg.param_dtype)
+        self.wq = dense_init(gen, (d, H * (dn + dr)), d, dt, device)
+        self.wkv_a = dense_init(gen, (d, r), d, dt, device)  # latent down-proj
+        self.wk_rope = dense_init(gen, (d, dr), d, dt, device)  # shared rope key
+        self.kv_norm = init_rmsnorm(r, dt, device)
+        self.wk_b = dense_init(gen, (r, H * dn), r, dt, device)  # latent -> k_nope
+        self.wv_b = dense_init(gen, (r, H * dv), r, dt, device)  # latent -> v
+        self.wo = dense_init(gen, (H * dv, d), H * dv, dt, device)
+
+
+def init_mla(gen, cfg: ModelConfig, device) -> MLA:
+    return MLA(gen, cfg, device)
+
+
+def mla_attention(p, x, cfg: ModelConfig, spec: LayerSpec, *, positions,
+                  cache=None, cache_pos=None):
+    """MLA: queries per head (nope + rope); K/V rebuilt from a shared latent
+    of rank ``kv_lora_rank``; the cache holds only the latent and the rope
+    key.  With a cache the new rows are written in place at ``cache_pos``
+    (clamped as ``dynamic_update_slice`` clamps); a prefill then attends
+    within its own chunk, as the reference does.  One-token decode with
+    ``cfg.mla_absorb`` folds wk_b into the query and attends in the latent
+    space.  Returns (out, cache)."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    r, dr = cfg.kv_lora_rank, cfg.qk_rope_dim
+    dn, dv = cfg.qk_nope_dim, cfg.v_head_dim
+    cdt = dtype_of(cfg.compute_dtype)
+    xc = x.to(cdt)
+    q = (xc @ p.wq.to(cdt)).reshape(B, S, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    latent = rmsnorm(p.kv_norm, xc @ p.wkv_a.to(cdt), cfg.norm_eps)
+    k_rope = rope((xc @ p.wk_rope.to(cdt))[:, :, None, :], positions,
+                  cfg.rope_theta)[:, :, 0, :]  # (B,S,dr) shared across heads
+
+    scale = 1.0 / math.sqrt(dn + dr)
+    new_cache = None
+    if cache is not None:
+        cl, cr = cache["latent"], cache["k_rope"]
+        start = max(0, min(cache_pos, cl.shape[1] - S))
+        cl[:, start:start + S] = cache_store(latent, cl.dtype)
+        cr[:, start:start + S] = cache_store(k_rope, cr.dtype)
+        new_cache = {"latent": cl, "k_rope": cr}
+        if S == 1:
+            T = cl.shape[1]
+            mask = (torch.arange(T, device=x.device) <= cache_pos)[None, None, :]
+            lat, kr = cache_load(cl, cdt), cache_load(cr, cdt)
+            if cfg.mla_absorb:
+                # absorb wk_b into q: q_lat (B,1,H,r) = q_nope @ wk_b^T per head
+                wkb = p.wk_b.to(cdt).reshape(r, H, dn)
+                q_lat = torch.einsum("bshn,rhn->bshr", q_nope, wkb)
+                logits = torch.einsum("bshr,btr->bhst", q_lat, lat)
+                logits += torch.einsum("bshr,btr->bhst", q_rope, kr)
+                logits = (logits * scale)[:, :, 0, :]  # (B,H,T)
+                logits = torch.where(mask, logits, -1e30)
+                w = torch.softmax(logits.float(), dim=-1).to(cdt)
+                ctx_lat = torch.einsum("bht,btr->bhr", w, lat)
+                wvb = p.wv_b.to(cdt).reshape(r, H, dv)
+                out = torch.einsum("bhr,rhv->bhv", ctx_lat, wvb)[:, None]
+            else:
+                k_nope = (lat @ p.wk_b.to(cdt)).reshape(B, T, H, dn)
+                vv = (lat @ p.wv_b.to(cdt)).reshape(B, T, H, dv)
+                logits = torch.einsum("bshn,bthn->bhst", q_nope, k_nope)
+                logits += torch.einsum("bshr,btr->bhst", q_rope, kr)
+                logits = (logits * scale)[:, :, 0, :]
+                logits = torch.where(mask, logits, -1e30)
+                w = torch.softmax(logits.float(), dim=-1).to(cdt)
+                out = torch.einsum("bht,bthv->bhv", w, vv)[:, None]
+            o = out.reshape(B, 1, H * dv) @ p.wo.to(cdt)
+            return o.to(x.dtype), new_cache
+
+    # train / prefill: rebuild full K, V and run flash attention
+    k_nope = (latent @ p.wk_b.to(cdt)).reshape(B, S, H, dn)
+    vv = (latent @ p.wv_b.to(cdt)).reshape(B, S, H, dv)
+    k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, dr)], -1)
+    q_full = torch.cat([q_nope, q_rope], -1)
+    # pad v to the qk dim for the one kernel, then slice (dv <= dn + dr)
+    v_pad = F.pad(vv, (0, dn + dr - dv))
+    out = kops.flash_attention(q_full, k_full, v_pad, causal=spec.causal,
+                               scale=scale, use_pallas=cfg.use_pallas)[..., :dv]
+    o = out.reshape(B, S, H * dv) @ p.wo.to(cdt)
+    return o.to(x.dtype), new_cache
+
+
+def init_mla_cache(cfg: ModelConfig, batch, max_len, dtype, device):
+    return {
+        "latent": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype,
+                              device=device),
+        "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_dim), dtype=dtype,
+                              device=device),
     }

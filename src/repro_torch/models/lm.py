@@ -3,21 +3,25 @@
 A model is the reference's layer plan (``cfg.plan``: prologue, then the
 superblock ``n_repeat`` times) held as an ``nn.ModuleList``; the reference's
 ``lax.scan`` over stacked blocks is a loop over layers here.  The port runs
-the layer kinds ``attn`` (with the ``glu`` MLP), ``rwkv6``, ``mamba2`` and
-``shared_attn`` (zamba2's shared-weight block, whose parameters live once at
-the top of ``LM`` and whose input is concat(hidden, embeddings of the current
-call)); every other kind or option raises ``NotImplementedError`` naming the
-ROADMAP item that brings it.
+the layer kinds ``attn`` and ``mla`` (each with the ``glu`` or ``moe`` MLP,
+``res_mlp`` beside the MoE under ``moe_dense_residual``), ``rwkv6``,
+``mamba2`` and ``shared_attn`` (zamba2's shared-weight block, whose
+parameters live once at the top of ``LM`` and whose input is concat(hidden,
+embeddings of the current call)), with ``sandwich_norm``'s post-norms
+around the attention and MLP outputs.  The ``xattn`` and ``dec`` kinds and
+the ``gelu_mlp`` MLP raise ``NotImplementedError`` naming the ROADMAP item
+that brings them.
 
 Training: ``forward_train`` runs each layer under ``cfg.remat`` and
-``loss_fn`` is the reference's cross-entropy; gradients come from autograd,
-through the flash kernel's ``autograd.Function`` on the card.
+``loss_fn`` is the reference's cross-entropy plus the MoE aux losses;
+gradients come from autograd, through the flash kernel's
+``autograd.Function`` on the card.
 
 Decode caches roll as in the reference: a buffer of length L < max_len is
-written at ``pos % L``.  The port writes K/V caches in place (one buffer per
-layer for the whole generation) where the reference returns new arrays; the
-RWKV and Mamba2 caches (token shifts, conv tail, recurrent state) are
-replaced by new tensors each step, as in the reference.
+written at ``pos % L``.  The port writes K/V and MLA latent caches in place
+(one buffer per layer for the whole generation) where the reference returns
+new arrays; the RWKV and Mamba2 caches (token shifts, conv tail, recurrent
+state) are replaced by new tensors each step, as in the reference.
 """
 from __future__ import annotations
 
@@ -32,15 +36,13 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as RW
 from repro_torch.models import ssm as SSM
 
 ZERO_AUX = {"moe_lb_loss": 0.0, "moe_z_loss": 0.0}
 
 _LATER = {
-    "mla": "ROADMAP Queue A, 'Attention variants'",
-    "sandwich_norm": "ROADMAP Queue A, 'Attention variants'",
-    "moe": "ROADMAP Queue A, 'MoE'",
     "xattn": "ROADMAP Queue A, 'Encoder and cross-attention'",
     "dec": "ROADMAP Queue A, 'Encoder and cross-attention'",
     "gelu_mlp": "ROADMAP Queue A, 'Encoder and cross-attention'",
@@ -52,19 +54,17 @@ def _not_ported(what: str):
         f"{what} is not ported yet: {_LATER.get(what, 'see ROADMAP.md')}")
 
 
-# layer kind -> the one MLP setting the port runs with it
-_KINDS = {"attn": "glu", "rwkv6": "none", "mamba2": "none",
-          "shared_attn": "none"}
+# layer kind -> the MLP settings the port runs with it
+_KINDS = {"attn": ("glu", "moe"), "mla": ("glu", "moe"), "rwkv6": ("none",),
+          "mamba2": ("none",), "shared_attn": ("none",)}
 
 
 def check_supported(cfg: ModelConfig) -> None:
     for spec in cfg.plan:
         if spec.kind not in _KINDS:
             raise _not_ported(spec.kind)
-        if spec.mlp != _KINDS[spec.kind]:
+        if spec.mlp not in _KINDS[spec.kind]:
             raise _not_ported(spec.mlp)
-    if cfg.sandwich_norm:
-        raise _not_ported("sandwich_norm")
     if cfg.n_enc_layers or cfg.n_img_tokens:
         raise _not_ported("xattn")
 
@@ -75,24 +75,40 @@ def check_supported(cfg: ModelConfig) -> None:
 
 class Layer(nn.Module):
     """One layer of the plan, with the reference's parameter names:
-    ``attn``: norm1, attn, norm2, mlp; ``rwkv6``: norm1, rwkv, norm2;
-    ``mamba2``: norm1, mamba; ``shared_attn``: norm1 only, which nothing
-    reads (the reference's ``init_layer`` gives every layer one; the shared
-    weights live in ``LM.shared_attn``)."""
+    ``attn`` and ``mla``: norm1, attn, norm2, mlp (a ``moe.MoE`` for
+    ``mlp="moe"``, plus ``res_mlp`` under ``moe_dense_residual``);
+    ``rwkv6``: norm1, rwkv, norm2; ``mamba2``: norm1, mamba;
+    ``shared_attn``: norm1 only, which nothing reads (the reference's
+    ``init_layer`` gives every layer one; the shared weights live in
+    ``LM.shared_attn``).  Under ``sandwich_norm`` every layer has
+    ``norm1_post``, and ``norm2_post`` where it has ``norm2``, as in the
+    reference; only ``attn`` and ``mla`` read them."""
 
     def __init__(self, gen, spec: LayerSpec, cfg: ModelConfig, device):
         super().__init__()
         dt = L.dtype_of(cfg.param_dtype)
         self.norm1 = L.init_rmsnorm(cfg.d_model, dt, device)
-        if spec.kind == "attn":
-            self.attn = L.init_attention(gen, cfg, device)
+        if spec.kind in ("attn", "mla"):
+            self.attn = (L.init_attention(gen, cfg, device)
+                         if spec.kind == "attn" else L.init_mla(gen, cfg, device))
             self.norm2 = L.init_rmsnorm(cfg.d_model, dt, device)
-            self.mlp = L.init_glu_mlp(gen, cfg.d_model, cfg.d_ff, dt, device)
+            if spec.mlp == "moe":
+                self.mlp = MOE.init_moe(gen, cfg, device)
+                if cfg.moe_dense_residual:
+                    self.res_mlp = L.init_glu_mlp(gen, cfg.d_model, cfg.d_ff,
+                                                  dt, device)
+            else:
+                self.mlp = L.init_glu_mlp(gen, cfg.d_model, cfg.d_ff, dt,
+                                          device)
         elif spec.kind == "rwkv6":
             self.rwkv = RW.init_rwkv6(gen, cfg, device)
             self.norm2 = L.init_rmsnorm(cfg.d_model, dt, device)
         elif spec.kind == "mamba2":
             self.mamba = SSM.init_mamba2(gen, cfg, device)
+        if cfg.sandwich_norm:
+            self.norm1_post = L.init_rmsnorm(cfg.d_model, dt, device)
+            if hasattr(self, "norm2"):
+                self.norm2_post = L.init_rmsnorm(cfg.d_model, dt, device)
 
 
 class SharedAttn(nn.Module):
@@ -152,6 +168,12 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, device) -> LM:
 # single layer application
 # ---------------------------------------------------------------------------
 
+def _post(p, name, y, cfg):
+    if cfg.sandwich_norm and hasattr(p, name):
+        return L.rmsnorm(getattr(p, name), y, cfg.norm_eps)
+    return y
+
+
 def apply_layer(p, spec: LayerSpec, cfg: ModelConfig, x, *, positions,
                 x0=None, cache=None, cache_pos=None, shared_params=None):
     """One layer of a kind ``check_supported`` admits.  ``x0`` is the
@@ -182,11 +204,24 @@ def apply_layer(p, spec: LayerSpec, cfg: ModelConfig, x, *, positions,
             nc = dict(nc, shift_c=new_shift.to(cache["shift_c"].dtype))
         return x, nc, dict(ZERO_AUX)
 
-    y, new_cache = _self_attn(p.attn, h, cfg, spec, positions, cache, cache_pos)
-    x = x + y
+    if spec.kind == "mla":
+        y, new_cache = L.mla_attention(p.attn, h, cfg, spec,
+                                       positions=positions, cache=cache,
+                                       cache_pos=cache_pos)
+    else:
+        y, new_cache = _self_attn(p.attn, h, cfg, spec, positions, cache,
+                                  cache_pos)
+    x = x + _post(p, "norm1_post", y, cfg)
     h2 = L.rmsnorm(p.norm2, x, cfg.norm_eps)
-    x = x + L.glu_mlp(p.mlp, h2.to(cdt), cdt).to(x.dtype)
-    return x, new_cache, dict(ZERO_AUX)
+    aux = dict(ZERO_AUX)
+    if spec.mlp == "moe":
+        y, aux = MOE.moe_layer(p.mlp, h2, cfg)
+        if cfg.moe_dense_residual:  # arctic: dense MLP parallel to MoE
+            y = y + L.glu_mlp(p.res_mlp, h2.to(cdt), cdt).to(y.dtype)
+    else:
+        y = L.glu_mlp(p.mlp, h2.to(cdt), cdt).to(x.dtype)
+    x = x + _post(p, "norm2_post", y, cfg)
+    return x, new_cache, aux
 
 
 def _self_attn(pa, h, cfg, spec, positions, cache, cache_pos):
@@ -348,6 +383,8 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch, max_len, dtype,
     if spec.kind in ("attn", "shared_attn"):
         return L.init_attn_cache(cfg, batch, _cache_len(cfg, spec, max_len),
                                  dtype, device)
+    if spec.kind == "mla":
+        return L.init_mla_cache(cfg, batch, max_len, dtype, device)
     if spec.kind == "mamba2":
         return SSM.init_mamba2_cache(cfg, batch, dtype, device)
     if spec.kind == "rwkv6":

@@ -1,0 +1,166 @@
+"""Mixture-of-Experts layer (port of ``repro/models/moe.py``; deepseek-v2-lite,
+arctic).
+
+Two implementations, selected by ``cfg.moe_impl``, with the reference's
+grouping (``cfg.moe_group`` tokens a group), capacity rounding and drops:
+
+* ``"gshard"``: capacity-bounded one-hot dispatch and combine einsums over
+  (group, tokens, E, C).
+* ``"sort"``: the same slots filled and read back by index (scatter and
+  gather), with no dispatch products.
+
+Both return (output, aux), aux holding the load-balance and router z-losses.
+The reference computes all of this outside any Pallas kernel, so it stays
+plain PyTorch here (matrix products and einsums).
+
+Two differences from JAX are handled: ``F.one_hot`` raises on an index
+>= C where ``jax.nn.one_hot`` gives a zero row (the reference relies on that
+for dropped tokens), so ``_one_hot`` compares against ``arange``; and the
+top-k breaks ties by the lower expert index, as ``jax.lax.top_k`` does,
+through a stable descending sort (bf16 router logits tie often).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import (dense_init, dtype_of, glu_mlp,
+                                       init_glu_mlp)
+
+
+class MoE(nn.Module):
+    def __init__(self, gen, cfg: ModelConfig, device):
+        super().__init__()
+        d, E, Fe = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+        dt = dtype_of(cfg.param_dtype)
+        self.w_router = dense_init(gen, (d, E), d, dt, device)
+        self.experts_wi = dense_init(gen, (E, d, Fe), d, dt, device)
+        self.experts_wg = dense_init(gen, (E, d, Fe), d, dt, device)
+        self.experts_wo = dense_init(gen, (E, Fe, d), Fe, dt, device)
+        if cfg.n_shared_experts:
+            self.shared = init_glu_mlp(gen, d, cfg.n_shared_experts * Fe, dt,
+                                       device)
+
+
+def init_moe(gen, cfg: ModelConfig, device) -> MoE:
+    return MoE(gen, cfg, device)
+
+
+def _one_hot(idx, n, dtype):
+    """``jax.nn.one_hot``: a zero row where ``idx`` is out of [0, n)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def _top_k(x, k):
+    """(values, indices) of the k largest along the last axis, ties to the
+    lower index (``jax.lax.top_k``)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _route(p, xf, cfg: ModelConfig):
+    """xf: (G, T, D) grouped tokens -> top-k experts, gates, aux losses."""
+    E, k = cfg.n_experts, cfg.top_k
+    logits = (xf @ p.w_router.to(xf.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_ids = _top_k(probs, k)  # (G,T,k)
+    gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True),
+                                            1e-9)
+    # Switch-style load-balance loss + router z-loss
+    me = probs.mean(dim=(0, 1))  # (E,)
+    ce = _one_hot(expert_ids[..., 0], E, torch.float32).mean(dim=(0, 1))
+    lb_loss = E * torch.sum(me * ce)
+    z_loss = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+    return expert_ids, gate_vals, {"moe_lb_loss": lb_loss, "moe_z_loss": z_loss}
+
+
+def _positions_in_expert(expert_ids, E):
+    """expert_ids: (G,T,k) -> per-slot position of each token in its expert's
+    queue (G,T,k), counting all slots in token order then slot order."""
+    oh = _one_hot(expert_ids, E, torch.int64)  # (G,T,k,E)
+    tok_counts = oh.sum(2)  # (G,T,E)
+    cum_prev_tokens = torch.cumsum(tok_counts, dim=1) - tok_counts  # exclusive
+    intra = torch.cumsum(oh, dim=2) - oh  # slots before this one, same token
+    ids = expert_ids[..., None]
+    base = cum_prev_tokens[:, :, None, :].expand_as(oh).gather(-1, ids)[..., 0]
+    off = intra.gather(-1, ids)[..., 0]
+    return base + off  # (G,T,k)
+
+
+def _capacity(cfg: ModelConfig, T):
+    c = int(math.ceil(cfg.capacity_factor * T * cfg.top_k / cfg.n_experts))
+    return max(8, -(-c // 8) * 8)  # round up to 8
+
+
+def moe_layer(p, x, cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """x: (B,S,D) -> (B,S,D), aux losses."""
+    B, S, D = x.shape
+    cdt = dtype_of(cfg.compute_dtype)
+    grp = cfg.moe_group
+    T = grp if (B * S) % grp == 0 and (B * S) >= grp else B * S
+    G = (B * S) // T
+    xf = x.reshape(G, T, D).to(cdt)
+    expert_ids, gates, aux = _route(p, xf, cfg)
+    C = _capacity(cfg, T)
+    pos = _positions_in_expert(expert_ids, cfg.n_experts)  # (G,T,k)
+    keep = pos < C
+    gates = gates * keep
+
+    if cfg.moe_impl == "sort":
+        out = _moe_sort(p, xf, expert_ids, gates, pos, keep, C, cfg)
+    elif cfg.moe_impl == "gshard":
+        out = _moe_gshard(p, xf, expert_ids, gates, pos, keep, C, cfg)
+    else:
+        raise ValueError(f"moe_impl={cfg.moe_impl!r}: gshard | sort")
+
+    if cfg.n_shared_experts:
+        out = out + glu_mlp(p.shared, xf, cdt)
+    return out.reshape(B, S, D).to(x.dtype), aux
+
+
+def _expert_ffn(p, xe, cdt):
+    """xe: (E, G, C, D) -> (E, G, C, D)."""
+    h = torch.einsum("egcd,edf->egcf", xe, p.experts_wi.to(cdt))
+    g = torch.einsum("egcd,edf->egcf", xe, p.experts_wg.to(cdt))
+    return torch.einsum("egcf,efd->egcd", F.silu(g) * h, p.experts_wo.to(cdt))
+
+
+def _moe_gshard(p, xf, expert_ids, gates, pos, keep, C, cfg):
+    E = cfg.n_experts
+    cdt = xf.dtype
+    # combine[g,t,e,c] = sum_j gate_j * 1[e=e_j] * 1[c=pos_j]
+    oh_e = _one_hot(expert_ids, E, cdt)  # (G,T,k,E)
+    oh_c = _one_hot(pos, C, cdt)  # (G,T,k,C); dropped slots: zero rows
+    combine = torch.einsum("gtk,gtke,gtkc->gtec", gates.to(cdt), oh_e, oh_c)
+    dispatch = (combine > 0).to(cdt)
+    xe = torch.einsum("gtec,gtd->egcd", dispatch, xf)  # (E,G,C,D)
+    ye = _expert_ffn(p, xe, cdt)
+    return torch.einsum("gtec,egcd->gtd", combine, ye)
+
+
+def _moe_sort(p, xf, expert_ids, gates, pos, keep, C, cfg):
+    """Dispatch without products: scatter tokens into an (E,G,C,D) slot
+    table by index, gather back with gates.  Dropped tokens go to a trash
+    slot."""
+    G, T, D = xf.shape
+    E, k = cfg.n_experts, cfg.top_k
+    cdt = xf.dtype
+    slot = torch.where(keep, expert_ids * C + pos, E * C)  # E*C = trash
+    flat_slots = slot.reshape(G, T * k)
+    tok_idx = torch.arange(T, device=xf.device).repeat_interleave(k)
+    rows = torch.arange(G, device=xf.device)[:, None]
+    # one writer a slot by construction (the trash slot is never read)
+    xe = torch.zeros((G, E * C + 1, D), dtype=cdt, device=xf.device)
+    xe[rows, flat_slots] = xf[:, tok_idx]
+    xe = xe[:, :E * C].reshape(G, E, C, D).permute(1, 0, 2, 3)  # (E,G,C,D)
+    ye = _expert_ffn(p, xe, cdt)
+    ye = ye.permute(1, 0, 2, 3).reshape(G, E * C, D)
+    # gather back per slot and weight by gate (trash slots have gate 0)
+    gathered = ye[rows, torch.clamp_max(flat_slots, E * C - 1)]
+    gathered = gathered.reshape(G, T, k, D)
+    return torch.einsum("gtk,gtkd->gtd", gates.to(cdt), gathered)

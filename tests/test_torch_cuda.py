@@ -58,6 +58,13 @@ def _qkv(dev, dtype, B, S, T, H, KV, D, seed=1):
     (1, 33, 70, 4, 1, 64, "bfloat16", False, None, None, 0),
     (2, 1, 101, 4, 4, 64, "bfloat16", True, None, None, 100),
     (1, 45, 83, 4, 2, 64, "bfloat16", False, None, None, 0),
+    # D 192: MLA's prefill (qk_nope 128 + qk_rope 64), and its edges
+    (4, 512, 512, 16, 16, 192, "bfloat16", True, None, None, 0),
+    (2, 300, 300, 4, 2, 192, "bfloat16", True, 64, 30.0, 0),
+    (1, 45, 83, 4, 2, 192, "bfloat16", False, None, None, 0),
+    (2, 1, 101, 4, 4, 192, "bfloat16", True, None, None, 100),
+    (2, 77, 130, 4, 2, 192, "float32", False, None, None, 0),
+    (1, 100, 100, 4, 4, 192, "float32", True, 40, 20.0, 0),
 ])
 def test_kernel_vs_plain(cuda_device, B, S, T, H, KV, D, dtype, causal,
                          window, softcap, q_pos0):
@@ -428,6 +435,111 @@ def test_kernel_wrappers_refuse_grad(cuda_device):
             t.requires_grad_(False)
         out = call()
         assert out.grad_fn is None
+
+
+def test_d192_under_grad_raises(cuda_device):
+    """The forward takes D 192 (MLA's prefill); the backward kernel does
+    not, so a call under grad raises before any launch, as do the lse and
+    backward entries, and nothing falls back."""
+    for dtype in ("bfloat16", "float32"):
+        q, k, v = _qkv(cuda_device, dtype, 1, 64, 64, 4, 4, 192)
+        before, bwd = fak.launches, fak.bwd_launches
+        q.requires_grad_(True)
+        with pytest.raises(ValueError, match="no backward kernel"):
+            fak.flash_attention(q, k, v)
+        q.requires_grad_(False)
+        with pytest.raises(ValueError, match="no backward kernel"):
+            fak.flash_attention_lse(q, k, v)
+        with pytest.raises(ValueError, match="no backward kernel"):
+            fak.flash_attention_bwd(q, k, v, q, torch.zeros(
+                1, 4, 64, device=cuda_device), q)
+        assert (fak.launches, fak.bwd_launches) == (before, bwd)
+        with torch.no_grad():
+            q.requires_grad_(True)
+            fak.flash_attention(q, k, v)
+        assert fak.launches == before + 1
+
+
+def _mla_moe_cfg(**over):
+    """deepseek-v2-lite's reduced config at the full MLA head widths (nope
+    128 + rope 64 = 192, a kernel dim; the reduced 48 is not)."""
+    cfg = registry.reduced_config("deepseek-v2-lite-16b")
+    return cfg.replace(qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128,
+                       kv_lora_rank=64, **over)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("absorb", [True, False])
+@torch.inference_mode()
+def test_mla_layer_on_the_card_matches_the_cpu(cuda_device, dtype, absorb):
+    from repro_torch.models import layers as L
+    cfg = _mla_moe_cfg(compute_dtype=dtype, mla_absorb=absorb)
+    spec = cfg.superblock[0]
+    mod = L.init_mla(torch.Generator().manual_seed(0), cfg, "cpu")
+    card = L.init_mla(torch.Generator().manual_seed(1), cfg, cuda_device)
+    card.load_state_dict(mod.state_dict())
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((2, 70, cfg.d_model),
+                                             dtype=np.float32)).to(TDT[dtype])
+    outs = {}
+    for dev, m in (("cpu", mod), (cuda_device, card)):
+        cache = L.init_mla_cache(cfg, 2, 80, TDT[dtype], dev)
+        before = fak.launches
+        pre, _ = L.mla_attention(m, x[:, :69].to(dev), cfg, spec,
+                                 positions=torch.arange(69, device=dev),
+                                 cache=cache, cache_pos=0)
+        dec, _ = L.mla_attention(m, x[:, 69:].to(dev), cfg, spec,
+                                 positions=torch.tensor([69], device=dev),
+                                 cache=cache, cache_pos=69)
+        assert fak.launches - before == (1 if dev != "cpu" else 0)
+        outs[dev if dev == "cpu" else "cuda"] = (pre.cpu(), dec.cpu(),
+                                                 cache["latent"].cpu())
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert _rel(got, want) < SCAN_REL[dtype] * 5
+
+
+@pytest.mark.parametrize("impl", ["gshard", "sort"])
+@torch.inference_mode()
+def test_moe_layer_on_the_card_matches_the_cpu(cuda_device, impl):
+    """float32: same routes on both devices, outputs and aux losses agree."""
+    from repro_torch.models import moe as MOE
+    cfg = _mla_moe_cfg(compute_dtype="float32", moe_impl=impl,
+                       capacity_factor=0.5)
+    mod = MOE.init_moe(torch.Generator().manual_seed(0), cfg, "cpu")
+    card = MOE.init_moe(torch.Generator().manual_seed(1), cfg, cuda_device)
+    card.load_state_dict(mod.state_dict())
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (4, 50, cfg.d_model), dtype=np.float32))
+    want, want_aux = MOE.moe_layer(mod, x, cfg)
+    got, got_aux = MOE.moe_layer(card, x.to(cuda_device), cfg)
+    assert _rel(got.cpu(), want) < 1e-4
+    for key in want_aux:
+        assert _rel(got_aux[key].cpu(), want_aux[key]) < 1e-4
+
+
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "gemma2-27b",
+                                  "deepseek-v2-lite-16b"])
+@torch.inference_mode()
+def test_serve_variant_models_launch_per_attention_layer(cuda_device, arch):
+    """Full width, depth cut to 2 superblocks: one flash forward per
+    attention or MLA layer a prefill, none at decode; float32-compute
+    logits match the plain run's."""
+    cfg = registry.get_config(arch)
+    cfg = cfg.replace(n_repeat=2, n_layers=len(cfg.prologue)
+                      + 2 * len(cfg.superblock), compute_dtype="float32")
+    params = lm.init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                            cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (2, 100), device=cuda_device,
+                         generator=torch.Generator(device=cuda_device).manual_seed(1))
+    eng = ServeEngine(cfg, params, max_len=128)
+    before = fak.launches
+    out = eng.generate(toks, 4)
+    assert out.shape == (2, 4)
+    assert fak.launches - before == cfg.n_layers
+    lk, _ = eng.prefill_fn(params, toks)
+    plain = ServeEngine(cfg.replace(use_pallas="never"), params, max_len=128)
+    lp, _ = plain.prefill_fn(params, toks)
+    assert _rel(lk, lp) < 1e-3
 
 
 # max |kernel - plain| / max |plain|: float32 sums in another order; the

@@ -40,6 +40,9 @@ for name, call in [("env.device", lambda: env.device()),
                    ("llm_serve_main_rwkv6", lambda: llm_serve_main(
                        ["--arch", "rwkv6-3b", "--prompt-len", "8",
                         "--new-tokens", "2"])),
+                   ("llm_serve_main_deepseek", lambda: llm_serve_main(
+                       ["--arch", "deepseek-v2-lite-16b", "--prompt-len",
+                        "8", "--new-tokens", "2"])),
                    ("quickstart", lambda: quickstart.main(
                        ["--samples", "16"])),
                    ("quickstart_two_process", lambda: quickstart.main(
@@ -98,6 +101,11 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.kernels.wkv6_scan", "repro_torch.kernels.ssd_scan",
                 "repro_torch.models.lm", "repro_torch.models.rwkv",
                 "repro_torch.models.ssm", "repro_torch.serve.engine",
+                "repro_torch.models.layers", "repro_torch.models.moe",
+                "repro_torch.configs.phi4_mini_3_8b",
+                "repro_torch.configs.gemma2_27b",
+                "repro_torch.configs.deepseek_v2_lite_16b",
+                "repro_torch.configs.arctic_480b",
                 "repro_torch.launch.serve", "repro_torch.convert",
                 "repro_torch.core.queue", "repro_torch.core.runtime",
                 "repro_torch.core.engine", "repro_torch.core.worker",

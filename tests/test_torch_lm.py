@@ -35,7 +35,11 @@ from repro_torch.serve.engine import ServeEngine
 REL = {"float32": 1e-4, "bfloat16": 5e-2}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-ARCHS = ["jag-surrogate", "granite-3-8b", "rwkv6-3b", "zamba2-1.2b"]
+ARCHS = ["jag-surrogate", "granite-3-8b", "rwkv6-3b", "zamba2-1.2b",
+         "phi4-mini-3.8b", "gemma2-27b", "deepseek-v2-lite-16b", "arctic-480b"]
+# MLA caches are max_len long and never roll (the reference's
+# dynamic_update_slice cannot write a prompt longer than its cache)
+MLA_ARCHS = ("deepseek-v2-lite-16b",)
 
 
 def rel_err(got, want):
@@ -48,8 +52,18 @@ def rel_err(got, want):
 
 
 def configs(arch, dtype):
-    jc = jreg.reduced_config(arch).replace(compute_dtype=dtype)
-    pc = preg.reduced_config(arch).replace(compute_dtype=dtype)
+    """Reduced configs of both packages in ``dtype`` compute.  In bf16 an
+    MoE model routes every token to all its experts (top_k = n_experts, so
+    nothing is dropped): the top-k choice is discontinuous, and bf16 router
+    logits that differ by one rounding between the frameworks pick other
+    experts (reduced deepseek-v2-lite: 1-4 tokens a layer, logits rel
+    0.15-0.32).  The real top-k, capacity and drops are held in float32 here
+    and in bf16 on equal inputs in test_torch_variants.py."""
+    over = dict(compute_dtype=dtype)
+    if dtype == "bfloat16" and jreg.get_config(arch).n_experts:
+        over["top_k"] = jreg.reduced_config(arch).n_experts
+    jc = jreg.reduced_config(arch).replace(**over)
+    pc = preg.reduced_config(arch).replace(**over)
     return jc, pc
 
 
@@ -88,12 +102,14 @@ def test_configs_match_reference_field_for_field(arch):
 
 def test_unported_archs_and_kinds_raise():
     with pytest.raises(KeyError, match="not ported"):
-        preg.get_config("deepseek-v2-lite-16b")
+        preg.get_config("whisper-tiny")
     cfg = preg.reduced_config("jag-surrogate")
-    for bad in (cfg.replace(superblock=(LayerSpec(kind="mla"),)),
-                cfg.replace(superblock=(LayerSpec(mlp="moe"),)),
-                cfg.replace(sandwich_norm=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for bad, what in ((cfg.replace(superblock=(LayerSpec(kind="xattn"),)),
+                       "xattn"),
+                      (cfg.replace(superblock=(LayerSpec(kind="dec"),)), "dec"),
+                      (cfg.replace(superblock=(LayerSpec(mlp="gelu_mlp"),)),
+                       "gelu_mlp")):
+        with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
             lm.init_params(bad, torch.Generator().manual_seed(0), "cpu")
 
 
@@ -247,18 +263,23 @@ def pair(arch, dtype, seed=0):
 def test_forward_train_logits(arch, dtype):
     jc, pc, jparams, model = pair(arch, dtype)
     toks = np.random.default_rng(4).integers(0, pc.vocab_size, (2, 24)).astype(np.int32)
-    want, _ = jlm.forward_train(jparams, jnp.asarray(toks), jc)
+    want, want_aux = jlm.forward_train(jparams, jnp.asarray(toks), jc)
     with torch.no_grad():
         got, aux = lm.forward_train(model, torch.from_numpy(toks), pc)
         assert rel_err(model(torch.from_numpy(toks)), want) < REL[dtype]
     assert got.shape == (2, 24, pc.vocab_size)
-    assert aux == lm.ZERO_AUX
+    if pc.n_experts:
+        for key, val in want_aux.items():
+            assert rel_err(aux[key], val) < REL[dtype], key
+    else:
+        assert aux == lm.ZERO_AUX
     assert rel_err(got, want) < REL[dtype]
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,extra", [  # cache longer / full / rolled
+    (arch, extra) for arch in ARCHS for extra in (4, 0, -5)
+    if not (arch in MLA_ARCHS and extra < 0)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("extra", [4, 0, -5])  # cache longer / full / rolled
 def test_prefill_then_decode(arch, dtype, extra):
     jc, pc, jparams, model = pair(arch, dtype, seed=1)
     S = 20
@@ -360,7 +381,9 @@ def test_engine_greedy_tokens_match_reference(arch):
     assert eng.stats["decode_tokens"] == 3 * 5
 
 
-@pytest.mark.parametrize("arch", ["jag-surrogate", "rwkv6-3b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["jag-surrogate", "rwkv6-3b", "zamba2-1.2b",
+                                  "phi4-mini-3.8b", "gemma2-27b",
+                                  "deepseek-v2-lite-16b", "arctic-480b"])
 def test_llm_serve_main_on_cpu(capsys, arch):
     assert llm_serve_main(["--arch", arch, "--device", "cpu",
                            "--prompt-len", "8", "--new-tokens", "2"]) == 0
