@@ -18,8 +18,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      device times of kernel, plain version and PyTorch's own call (where
      one call computes the same function) beside the card's bound; the
      flash forward also at phi4's GQA 24:8, gemma2's 6144-token local and
-     global layers (softcap 50: no library call) and deepseek's D-192 MLA
-     prefill.  The flash backward (dq, dk, dv) is held to
+     global layers (softcap 50: no library call), deepseek's D-192 MLA
+     prefill, whisper-tiny's non-causal encoder (1500 x 1500, H 6) and
+     cross-attention over 1500 frames at S 400 and S 1 (decode),
+     llama-3.2-vision-11b's GQA 32:8 self- and cross-attention over 1600
+     image tokens (S 512 and S 1) and starcoder2-15b's GQA 48:4 prefill.
+     The flash backward (dq, dk, dv) is held to
      ref.flash_attention_bwd_ref on the forward kernel's output and
      log-sum-exp at BWD_SHAPES (jag's
      training shapes, zamba2's 512 shape, GQA, window + softcap, D 16 and
@@ -27,19 +31,31 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      mirror of its rounding points ref.flash_attention_bwd_tc_ref; the
      autograd Function must give the same gradients, and its library time
      is scaled_dot_product_attention's backward;
-  4. serve: jag-surrogate, rwkv6-3b, zamba2-1.2b, phi4-mini-3.8b and
-     deepseek-v2-lite-16b at full width and full depth, gemma2-27b at full
+  4. serve: jag-surrogate, rwkv6-3b, zamba2-1.2b, phi4-mini-3.8b,
+     deepseek-v2-lite-16b, whisper-tiny, llama-3.2-vision-11b and
+     starcoder2-15b at full width and full depth, gemma2-27b at full
      width and 8 of its 46 layers, through ServeEngine (random weights from
      seed 0; batch 4, prompts of 32, 200 and 512 tokens, 32 new tokens
      each; gemma2: batch 1, one prompt of 6144 tokens, past its 4096
-     window).  Every launch count is set to 0 just before each model's run
-     and read just after; the counts must be exact (jag 12 flash; rwkv6-3b
+     window; whisper: prompts of 32, 200 and 400, inside its 448-token
+     context).  whisper and llama-vision get random bf16 frame / patch
+     embeddings from seed 1 in every call, and llama-vision's xgates are
+     set to 1.0, so its cross-attention reaches the logits.  Every launch
+     count is set to 0 just before each model's run and read just after;
+     the counts must be exact, prefill and decode (jag 12 flash; rwkv6-3b
      96 WKV; zamba2 99 SSD and 15 flash; phi4 96, gemma2 8 and deepseek 81
-     flash, and 81 more for deepseek's run with int8 latent caches), and
-     the first-token logits are held against a run of the plain versions
-     (MoE layers at the kernel run's routes).  deepseek also holds its int8
-     caches' first decode step to the plain run's, and ``moe_impl="sort"``
-     to ``gshard``: first-token logits, and greedy tokens in float32;
+     flash, and 81 more for deepseek's run with int8 latent caches;
+     whisper 3 x (12 + 31 x 4) = 408 and llama-vision 3 x (40 + 31 x 8) =
+     864, its cross-attention running at every decode step; starcoder2
+     120), and the first-token and first decode-step logits are held
+     against a run of the plain versions from the plain run's own caches
+     (MoE layers at the kernel run's routes).  A float32-compute
+     prefill must launch one prefill's count.  One prefill and 8 decode
+     steps of the longest prompt are then profiled: device time by kernel
+     group, the flash kernel's share of it, and the idle share.  deepseek
+     also holds its int8 caches' first decode step to the plain run's, and
+     ``moe_impl="sort"`` to ``gshard``: first-token logits, and greedy
+     tokens in float32;
   5. merlin: the Merlin loop as ``python -m repro_torch.launch.quickstart``
      runs it: 512 JAG samples through MerlinRuntime and a WorkerPool of 4
      workers, one CUDA graph a bucket in the EnsembleExecutor, into a
@@ -125,7 +141,7 @@ from repro_torch.kernels import ssd_scan as ssdk  # noqa: E402
 from repro_torch.kernels import wkv6_scan as wkvk  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
-from repro_torch.serve.engine import ServeEngine  # noqa: E402
+from repro_torch.serve.engine import ServeEngine, extra_shapes  # noqa: E402
 from repro_torch.core import active  # noqa: E402
 from repro_torch.data.pipeline import regression_dataset  # noqa: E402
 from repro_torch.core import ensemble as ens  # noqa: E402
@@ -184,11 +200,33 @@ SHAPES = [
      30.0, 0),
     ("bf16_D192_S1_q_pos0_100", 2, 1, 101, 4, 4, 192, BF16, True, None, None,
      100),
+    # whisper-tiny: the non-causal encoder over 1500 frames, the decoder's
+    # self-attention, and cross-attention to the encoder's 1500 states at
+    # the longest prompt and at every decode step (S = 1)
+    ("whisper_encoder_1500", 4, 1500, 1500, 6, 6, 64, BF16, False, None, None,
+     0),
+    ("whisper_self_400", 4, 400, 400, 6, 6, 64, BF16, True, None, None, 0),
+    ("whisper_cross_400", 4, 400, 1500, 6, 6, 64, BF16, False, None, None, 0),
+    ("whisper_cross_decode", 4, 1, 1500, 6, 6, 64, BF16, False, None, None, 0),
+    # llama-3.2-vision-11b: self-attention GQA 32:8, and its gated
+    # cross-attention layers over 1600 image tokens at prefill and decode
+    ("llama_vision_self_512", 4, 512, 512, 32, 8, 128, BF16, True, None, None,
+     0),
+    ("llama_vision_cross_512", 4, 512, 1600, 32, 8, 128, BF16, False, None,
+     None, 0),
+    ("llama_vision_cross_decode", 4, 1, 1600, 32, 8, 128, BF16, False, None,
+     None, 0),
+    # starcoder2-15b: GQA 48:4
+    ("starcoder2_prefill_512", 4, 512, 512, 48, 4, 128, BF16, True, None, None,
+     0),
 ]
 MAIN_PATH = ("jag_prefill_512", "jag_prefill_200", "jag_prefill_32",
              "zamba2_prefill_512", "zamba2_prefill_200", "zamba2_prefill_32",
              "phi4_prefill_512", "gemma2_local", "gemma2_global",
-             "deepseek_mla_prefill_512")
+             "deepseek_mla_prefill_512", "whisper_encoder_1500",
+             "whisper_self_400", "whisper_cross_400", "whisper_cross_decode",
+             "llama_vision_self_512", "llama_vision_cross_512",
+             "llama_vision_cross_decode", "starcoder2_prefill_512")
 # kernel -> (module, its launch counter); flash_attention_bwd is built from
 # csrc/flash_attention_bwd.cu and counted by the flash wrapper
 KERNELS = {"flash_attention": (fak, "launches"),
@@ -248,11 +286,13 @@ FP32_SERVE_REL = 1e-3
 
 
 def _serve(counts, batch=4, prompts=(32, 200, 512), new_tokens=32,
-           n_repeat=None):
+           n_repeat=None, decode_counts=None):
     """One model's serve run: ``counts(cfg)`` is the launches each prefill
-    must make, per kernel; ``n_repeat`` cuts the depth (None: full)."""
+    must make, per kernel, and ``decode_counts(cfg)`` those of each decode
+    step (None: none); ``n_repeat`` cuts the depth (None: full)."""
     return {"counts": counts, "batch": batch, "prompts": prompts,
-            "new_tokens": new_tokens, "n_repeat": n_repeat}
+            "new_tokens": new_tokens, "n_repeat": n_repeat,
+            "decode_counts": decode_counts or (lambda cfg: {})}
 
 
 SERVE = {
@@ -272,6 +312,24 @@ SERVE = {
     # full width and depth (~62 GB of float32 weights); MLA + MoE
     "deepseek-v2-lite-16b": _serve(lambda cfg: {
         "flash_attention": _count(cfg, "mla")}),
+    # full width and depth; a prefill runs the 4 encoder layers over 1500
+    # frames and each decoder layer's self- and cross-attention, a decode
+    # step each decoder layer's cross-attention (S = 1 against 1500).  A
+    # prompt plus 32 new tokens stays inside whisper's 448-token context.
+    "whisper-tiny": _serve(
+        lambda cfg: {"flash_attention": cfg.n_enc_layers
+                     + 2 * _count(cfg, "dec")},
+        prompts=(32, 200, 400),
+        decode_counts=lambda cfg: {"flash_attention": _count(cfg, "dec")}),
+    # full width and depth (~37 GB of float32 weights): 32 self-attention
+    # and 8 gated cross-attention layers over 1600 image tokens, the latter
+    # again at each decode step
+    "llama-3.2-vision-11b": _serve(
+        lambda cfg: {"flash_attention": cfg.n_layers},
+        decode_counts=lambda cfg: {"flash_attention": _count(cfg, "xattn")}),
+    # full width and depth (~64 GB of float32 weights)
+    "starcoder2-15b": _serve(lambda cfg: {
+        "flash_attention": _count(cfg, "attn")}),
 }
 
 
@@ -721,6 +779,90 @@ def _serve_sort(cfg, params, eng, requests, max_len, new_tokens, bf16_tokens):
     return line, failures
 
 
+def _extras(cfg, batch, gen, dev):
+    """Random bf16 N(0, 1) stub-frontend inputs of one request, in
+    ``extra_shapes`` order (empty for a model that reads none)."""
+    return {key: torch.randn(shape, generator=gen, device=dev).to(BF16)
+            for key, shape in extra_shapes(cfg, batch).items()}
+
+
+SERVE_PROFILE_STEPS = 8
+
+
+# kernel-name fragments of the matrix products (cuBLAS / cuBLASLt) and of
+# the copies and dtype casts (the float32 weights' casts to bf16)
+_GEMM = ("gemm", "nvjet", "xmma", "cutlass")
+_COPY = ("copy", "cast")
+
+
+def _device_groups(fn):
+    """Device time (ms) of ``fn()`` under torch.profiler by kernel group
+    (the flash forward, matrix products, copies and casts, the rest) and
+    by kernel name (the five longest); (None, None) where the profiler
+    records no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    groups, names = {}, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        names[e.name[:100]] = names.get(e.name[:100], 0.0) + ms
+        low = e.name.lower()
+        name = ("flash_fwd" if "flash_fwd" in low else
+                "gemm" if any(f in low for f in _GEMM) else
+                "copy_cast" if any(f in low for f in _COPY) else "other")
+        groups[name] = groups.get(name, 0.0) + ms
+    if not groups:
+        return None, None
+    return groups, sorted(names.items(), key=lambda kv: -kv[1])[:5]
+
+
+def serve_profile(eng, params, t, xs, steps=SERVE_PROFILE_STEPS):
+    """One prefill of ``t`` and ``steps`` greedy decode steps after it: wall
+    ms of each (synchronized, without the profiler), and under
+    torch.profiler the device ms by kernel group, the flash kernel's share
+    of the device time, and the device's idle share (1 - device busy /
+    wall).  Kernels run on one stream, so their summed times are the busy
+    time."""
+    state = {}
+
+    def prefill():
+        state["logits"], state["caches"] = eng.prefill_fn(params, t, *xs)
+
+    def decode():
+        tok = state["logits"][:, -1].argmax(-1)[:, None]
+        caches = state["caches"]
+        for _ in range(steps):
+            logits, caches = eng.decode_fn(params, tok, caches)
+            tok = logits.argmax(-1)[:, None]
+
+    out = {"prompt_len": t.shape[1], "decode_steps": steps}
+    # decode writes its caches in place at the same positions each time it
+    # runs from the prefill's state, so both of its runs do the same work
+    for name, fn, n in (("prefill", prefill, 1),
+                        ("decode_step", decode, steps)):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.monotonic() - t0) * 1e3 / n
+        groups, top = _device_groups(fn)
+        busy = sum(groups.values()) / n if groups else None
+        out[name] = {"wall_ms": wall, "device_busy_ms": busy}
+        if groups:
+            out[name].update(
+                device_ms_by_group={k: v / n for k, v in sorted(groups.items())},
+                top_kernels_ms=[[k, v / n] for k, v in top],
+                flash_share_of_device=groups.get("flash_fwd", 0.0) / n / busy,
+                idle_share=1.0 - busy / wall)
+    return out
+
+
 @torch.inference_mode()
 def phase_serve(dev, arch):
     """Serve one model at full width (and full depth unless SERVE cuts it);
@@ -733,21 +875,32 @@ def phase_serve(dev, arch):
     cfg = full if opt["n_repeat"] is None else full.replace(
         n_repeat=opt["n_repeat"], n_layers=len(full.prologue)
         + len(full.superblock) * opt["n_repeat"])
+    torch.cuda.reset_peak_memory_stats()
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    for p, spec in zip(params.layers, cfg.plan):
+        if spec.kind == "xattn":  # tanh(0) at init would hide the layer
+            p.xgate.fill_(1.0)
     max_len = max(prompts) + new_tokens + 8
     eng = ServeEngine(cfg, params, max_len=max_len)
     gen = torch.Generator(device=dev).manual_seed(1)
     requests = [torch.randint(0, cfg.vocab_size, (batch, n), generator=gen,
                               device=dev) for n in prompts]
-    eng.generate(requests[0][:, :8], 2)  # warm-up: library handles, allocator
+    # the stub frontends' inputs (whisper's frames, llama-vision's patches),
+    # one set a request, in ServeEngine's order
+    extras = [_extras(cfg, batch, gen, dev) for _ in prompts]
+    eng.generate(requests[0][:, :8], 2, extra=extras[0])  # warm-up
     eng.stats = {k: type(v)() for k, v in eng.stats.items()}
 
     _zero_launches()
-    outs = [eng.generate(t, new_tokens) for t in requests]
+    outs = [eng.generate(t, new_tokens, extra=ex)
+            for t, ex in zip(requests, extras)]
     launches = _launches()
 
     per_prefill = opt["counts"](cfg)
-    want = {name: len(prompts) * per_prefill.get(name, 0) for name in KERNELS}
+    per_step = opt["decode_counts"](cfg)
+    want = {name: len(prompts) * (per_prefill.get(name, 0) + (new_tokens - 1)
+                                  * per_step.get(name, 0))
+            for name in KERNELS}
     failures = []
     if launches != want:
         failures.append(f"kernel launches {launches} in the serve run, "
@@ -772,50 +925,63 @@ def phase_serve(dev, arch):
                            max_len=max_len)
                if cfg.wkv_impl == "blocked" else None)
     moe = bool(cfg.n_experts)
-    rels, bars, free_rels, flips, decode_logits = [], [], [], [], []
-    for t in requests:
+    rels, dec_rels, bars = [], [], []
+    free_rels, flips, decode_logits = [], [], []
+    for t, ex in zip(requests, extras):
+        xs = list(ex.values())
         rec = []
         with _routes(record=rec):
-            lk, caches = eng.prefill_fn(params, t)
+            lk, caches = eng.prefill_fn(params, t, *xs)
+            tok = lk[:, -1].argmax(-1)[:, None]
+            ld, _ = eng.decode_fn(params, tok, caches)
         before = _launches()
+        # the plain run decodes the kernel run's first token from its own
+        # caches: the decode step's kernels (cross-attention's S = 1 flash)
+        # are held to their plain versions at the served shapes too
         with _routes(replay=rec):
-            lp, _ = plain.prefill_fn(params, t)
-        lb = blocked.prefill_fn(params, t)[0].float() if blocked else None
+            lp, cp = plain.prefill_fn(params, t, *xs)
+            lpd, _ = plain.decode_fn(params, tok, cp)
+        lb = blocked.prefill_fn(params, t, *xs)[0].float() if blocked else None
         if moe:
             free = []
             with _routes(record=free):
-                lf, _ = plain.prefill_fn(params, t)
+                lf, _ = plain.prefill_fn(params, t, *xs)
             free_rels.append(_rel(lk, lf))
             flips.append(_flips(rec, free))
         if _launches() != before:
             failures.append("the plain run launched a kernel")
-        ld, _ = eng.decode_fn(params, lk[:, -1].argmax(-1)[:, None], caches)
         decode_logits.append(ld)
         lk, lp, ld = lk.float(), lp.float(), ld.float()
         if not (torch.isfinite(lk).all() and torch.isfinite(ld).all()):
             failures.append("non-finite logits")
-        rel = _rel(lk, lp)
+        rel, dec_rel = _rel(lk, lp), _rel(ld, lpd)
         bar = max(5e-2, _rel(lb, lp)) if lb is not None else 5e-2
         rels.append(rel)
+        dec_rels.append(dec_rel)
         bars.append(bar)
         if rel > bar:
             failures.append(f"first-token logits differ from the plain run "
                             f"by rel {rel} > {bar} at prompt {t.shape[1]}")
-    del caches
+        if dec_rel > bar:
+            failures.append(f"first decode-step logits differ from the plain "
+                            f"run by rel {dec_rel} > {bar} at prompt "
+                            f"{t.shape[1]}")
+    del caches, cp
+    xs = list(extras[-1].values())
     cfg32 = cfg.replace(compute_dtype="float32")
     rec = []
     before = _launches()
     with _routes(record=rec):
         lk32 = ServeEngine(cfg32, params, max_len=max_len).prefill_fn(
-            params, requests[-1])[0]
+            params, requests[-1], *xs)[0]
     ran = {name: n - before[name] for name, n in _launches().items()}
-    if ran != {name: n // len(prompts) for name, n in want.items()}:
-        failures.append(f"the float32 run launched {ran}")
+    if ran != {name: per_prefill.get(name, 0) for name in KERNELS}:
+        failures.append(f"the float32 prefill launched {ran}")
     with _routes(replay=rec):
         lp32 = ServeEngine(cfg32.replace(use_pallas="never",
                                          wkv_impl="chunked"),
                            params, max_len=max_len).prefill_fn(
-                               params, requests[-1])[0]
+                               params, requests[-1], *xs)[0]
     rel32 = _rel(lk32, lp32)
     if not rel32 < FP32_SERVE_REL:
         failures.append(f"float32 first-token logits differ from the plain "
@@ -827,11 +993,15 @@ def phase_serve(dev, arch):
         full_depth_n_layers=full.n_layers,
         d_model=cfg.d_model,
         **{COUNT_KEYS[name]: n for name, n in launches.items()},
-        expected_launches=want, first_token_rel_err=rels, rel_tol=bars,
+        expected_launches=want,
+        expected_per_prefill=per_prefill, expected_per_decode_step=per_step,
+        first_token_rel_err=rels, first_decode_rel_err=dec_rels,
+        rel_tol=bars,
         fp32_first_token_rel_err=rel32, fp32_rel_tol=FP32_SERVE_REL,
         prefill_tok_per_s=s["prefill_tokens"] / s["prefill_s"],
         decode_tok_per_s=s["decode_tokens"] / s["decode_s"],
-        stats=s)
+        stats=s, extras=sorted(extras[0]),
+        profile=serve_profile(eng, params, requests[-1], xs))
     if moe:
         line.update(routes_replayed=True,
                     first_token_rel_err_own_routes=free_rels,

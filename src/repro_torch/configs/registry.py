@@ -1,9 +1,6 @@
 """Architecture registry of the port: ``--arch <id>`` resolution and reduced
-configs for CPU tests.
-
-``ARCHS`` lists only the architectures whose layer kinds the port runs; the
-rest of the reference's zoo comes with later slices (see ROADMAP.md).
-"""
+configs for CPU tests.  ``ARCHS`` holds the reference's eleven
+architectures."""
 from __future__ import annotations
 
 import importlib
@@ -18,16 +15,18 @@ ARCHS = {
     "gemma2-27b": "repro_torch.configs.gemma2_27b",
     "granite-3-8b": "repro_torch.configs.granite_3_8b",
     "jag-surrogate": "repro_torch.configs.jag_surrogate",
+    "llama-3.2-vision-11b": "repro_torch.configs.llama_3_2_vision_11b",
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
     "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
+    "starcoder2-15b": "repro_torch.configs.starcoder2_15b",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
     "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
 }
 
 
 def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in ARCHS:
-        raise KeyError(f"arch {arch_id!r} is not ported yet; ported: "
-                       f"{sorted(ARCHS)}")
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCHS)}")
     cfg = importlib.import_module(ARCHS[arch_id]).get_config()
     cfg.validate()
     return cfg

@@ -4,13 +4,17 @@
 with its leaves already turned into numpy arrays (the port never sees a JAX
 array) and returns the port's ``LM`` holding the same values:
 
-  * ``embed``, ``final_norm.scale`` and ``lm_head`` map by name, and so do
-    the leaves of the top-level ``shared_attn`` (zamba2's shared block);
+  * ``embed``, ``final_norm.scale``, ``lm_head`` and ``w_img`` (the image
+    projection) map by name, and so do the leaves of the top-level
+    ``shared_attn`` (zamba2's shared block) and ``encoder.final_norm``;
+  * ``encoder.blocks`` holds whisper's encoder layers stacked over
+    ``n_enc_layers``: row r of each leaf is ``encoder.blocks.{r}``;
   * ``prologue[j]`` is layer j;
   * ``blocks[i]`` holds superblock position i stacked over ``n_repeat``:
     row r of each leaf is layer ``len(prologue) + r * len(superblock) + i``,
-    whose leaves (``norm1``, ``attn``, ``norm2``, ``mlp``, ``rwkv``,
-    ``mamba``; ``norm1_post`` and ``norm2_post`` under sandwich norms; the
+    whose leaves (``norm1``, ``attn``, ``norm2``, ``mlp`` (GLU, GELU or
+    MoE), ``rwkv``, ``mamba``; xattn's 0-d ``xgate``, dec's ``xnorm`` and
+    ``xattn``; ``norm1_post`` and ``norm2_post`` under sandwich norms; the
     MLA keys ``attn.wkv_a``, ``attn.wk_rope``, ``attn.kv_norm``,
     ``attn.wk_b``, ``attn.wv_b``; the MoE keys ``mlp.w_router``,
     ``mlp.experts_w{i,g,o}`` (stacked (n_repeat, E, ...)) and
@@ -46,7 +50,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.active import Surrogate, SurrogateSnapshot
 from repro_torch.models import lm
 
-_TOP = ("embed", "final_norm", "lm_head", "prologue", "blocks", "shared_attn")
+_TOP = ("embed", "final_norm", "lm_head", "prologue", "blocks", "shared_attn",
+        "encoder", "w_img")
 
 
 def _flatten(tree, prefix=""):
@@ -66,30 +71,45 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
+def _unstack(block, n, label, key) -> Dict[str, torch.Tensor]:
+    """Leaves of ``block`` stacked over n rows -> {key(r, leaf name): row r}."""
+    sd = {}
+    for name, leaf in _flatten(block).items():
+        stacked = np.asarray(leaf)
+        if stacked.shape[0] != n:
+            raise ValueError(f"{label}.{name}: leading dim "
+                             f"{stacked.shape[0]} != {n}")
+        for r in range(n):
+            sd[key(r, name)] = _tensor(stacked[r])
+    return sd
+
+
 def _state_dict(tree, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """The reference's params-shaped tree (as numpy) -> {port name: tensor}."""
     extra = sorted(set(tree) - set(_TOP))
     if extra:
-        raise NotImplementedError(f"params {extra} belong to layer kinds the "
-                                  "port does not run yet")
+        raise NotImplementedError(f"params {extra} are not parameters of the "
+                                  "reference's LM")
     sd: Dict[str, torch.Tensor] = {"embed": _tensor(tree["embed"]),
                                    "final_norm.scale": _tensor(tree["final_norm"]["scale"])}
-    if "lm_head" in tree:
-        sd["lm_head"] = _tensor(tree["lm_head"])
+    for key in ("lm_head", "w_img"):
+        if key in tree:
+            sd[key] = _tensor(tree[key])
     for name, leaf in _flatten(tree.get("shared_attn", {})).items():
         sd[f"shared_attn.{name}"] = _tensor(leaf)
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        sd["encoder.final_norm.scale"] = _tensor(enc["final_norm"]["scale"])
+        sd.update(_unstack(enc["blocks"], cfg.n_enc_layers, "encoder.blocks",
+                           lambda r, name: f"encoder.blocks.{r}.{name}"))
     for j, layer in enumerate(tree["prologue"]):
         for name, leaf in _flatten(layer).items():
             sd[f"layers.{j}.{name}"] = _tensor(leaf)
     n_pro, n_sb = len(cfg.prologue), len(cfg.superblock)
     for i, block in enumerate(tree["blocks"]):
-        for name, leaf in _flatten(block).items():
-            stacked = np.asarray(leaf)
-            if stacked.shape[0] != cfg.n_repeat:
-                raise ValueError(f"blocks[{i}].{name}: leading dim "
-                                 f"{stacked.shape[0]} != n_repeat {cfg.n_repeat}")
-            for r in range(cfg.n_repeat):
-                sd[f"layers.{n_pro + r * n_sb + i}.{name}"] = _tensor(stacked[r])
+        sd.update(_unstack(
+            block, cfg.n_repeat, f"blocks[{i}]",
+            lambda r, name: f"layers.{n_pro + r * n_sb + i}.{name}"))
     return sd
 
 

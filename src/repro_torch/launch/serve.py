@@ -5,11 +5,13 @@ launches of each CUDA kernel):
 
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch {jag-surrogate,granite-3-8b,phi4-mini-3.8b,gemma2-27b,
-              deepseek-v2-lite-16b,arctic-480b,rwkv6-3b,zamba2-1.2b} \
+              deepseek-v2-lite-16b,arctic-480b,rwkv6-3b,zamba2-1.2b,
+              whisper-tiny,llama-3.2-vision-11b,starcoder2-15b} \
       [--full] [--batch N] [--prompt-len N] [--new-tokens N] [--device cpu]
 
 ``--device cpu`` runs on the CPU through the plain versions of the kernels.
-Without ``--full`` the config is the reduced one.  As in the reference
+whisper-tiny and llama-3.2-vision-11b get the reference's stub-frontend
+inputs, ``enc_embed`` / ``img_embed`` of zeros in bf16.  Without ``--full`` the config is the reduced one.  As in the reference
 there is no flag for depth or cache dtype: ``--full`` is the published
 depth (arctic-480b's ~54 GB of float32 weights a layer do not fit one
 80 GB card).
@@ -836,7 +838,7 @@ def llm_serve_main(argv=None):
     from repro_torch.kernels import ssd_scan as ssdk
     from repro_torch.kernels import wkv6_scan as wkvk
     from repro_torch.models import lm
-    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.engine import ServeEngine, extra_shapes
 
     dev = env.device(args.device)
     cfg = (registry.reduced_config(args.arch) if args.reduced
@@ -846,10 +848,13 @@ def llm_serve_main(argv=None):
     toks = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                          generator=torch.Generator(device=dev).manual_seed(1),
                          device=dev)
+    # the stub frontends' inputs, as the reference passes them
+    extra = {k: torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+             for k, shape in extra_shapes(cfg, args.batch).items()}
     kernels = {"flash_launches": fak, "wkv6_launches": wkvk,
                "ssd_launches": ssdk}
     launches0 = {name: mod.launches for name, mod in kernels.items()}
-    out = eng.generate(toks, args.new_tokens)
+    out = eng.generate(toks, args.new_tokens, extra=extra)
     s = eng.stats
     print(json.dumps({
         "arch": cfg.arch_id, "batch": args.batch,

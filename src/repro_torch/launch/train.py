@@ -8,7 +8,10 @@
 Runs on the card unless ``--device cpu``; on the card attention's forward
 and backward are the flash kernels.  Layer kinds whose kernels have no
 backward yet (rwkv6's WKV6 scan, mamba2's SSD scan) raise there; on the CPU
-they train through the plain versions.  Checkpoint/restart is automatic:
+they train through the plain versions.  Archs that read extras (whisper's
+``enc_embed``, llama-vision's ``img_embed``) raise ``NotImplementedError``
+on any device: their training is ROADMAP Queue A, "Training the encoder
+archs".  Checkpoint/restart is automatic:
 re-running with the same ``--workdir`` resumes.  ``--data`` takes a
 bundler root of JAG results, tokenized as the reference does; the default
 is the synthetic token stream.  Prints one JSON summary: the reference's
@@ -57,6 +60,10 @@ def main(argv=None):
     dev = env.device(args.device)
     cfg = (registry.reduced_config(args.arch) if args.reduced
            else registry.get_config(args.arch))
+    if cfg.n_enc_layers or cfg.n_img_tokens:
+        raise NotImplementedError(
+            f"{cfg.arch_id} reads enc_embed / img_embed, which this launcher "
+            "does not feed yet: ROADMAP Queue A, 'Training the encoder archs'")
     if dev.type == "cuda":
         for spec in cfg.plan:
             if spec.kind in _NO_BACKWARD:

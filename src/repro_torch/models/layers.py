@@ -1,6 +1,8 @@
 """Core neural layers (port of ``repro/models/layers.py``): norms, RoPE, the
-GLU MLP, GQA attention (with the reference's ``d_in``), the int8 cache
-helpers and MLA (DeepSeek multi-head latent attention).
+GLU and GELU MLPs, GQA attention (with the reference's ``d_in``), the int8
+cache helpers and MLA (DeepSeek multi-head latent attention).  The
+reference's ``attention`` also takes ``kv_x`` / ``rope_on``, which none of
+its callers sets; cross-attention is ``models/lm.py``'s ``_cross_attn``.
 
 Parameters live in ``nn.Module``s whose attribute names are the reference's
 dict keys (``p.wq`` for ``p["wq"]``); the math is plain functions on
@@ -110,6 +112,24 @@ def glu_mlp(p, x, cdtype, act=F.silu):
     return (act(g) * h) @ p.wo.to(cdtype)
 
 
+class GELUMLP(nn.Module):
+    def __init__(self, gen, d_model, d_ff, dtype, device):
+        super().__init__()
+        self.wi = dense_init(gen, (d_model, d_ff), d_model, dtype, device)
+        self.wo = dense_init(gen, (d_ff, d_model), d_ff, dtype, device)
+
+
+def init_gelu_mlp(gen, d_model, d_ff, dtype, device) -> GELUMLP:
+    return GELUMLP(gen, d_model, d_ff, dtype, device)
+
+
+def gelu_mlp(p, x, cdtype):
+    # jax.nn.gelu's default is the tanh form; the exact erf form differs by
+    # about 1e-3
+    h = x @ p.wi.to(cdtype)
+    return F.gelu(h, approximate="tanh") @ p.wo.to(cdtype)
+
+
 # ---------------------------------------------------------------------------
 # GQA attention
 # ---------------------------------------------------------------------------
@@ -144,8 +164,8 @@ def attention(p, x, cfg: ModelConfig, spec: LayerSpec, *, positions,
               return_kv: bool = False):
     """GQA self-attention over a full sequence (train / prefill).
 
-    x: (B, S, D).  Cache handling (decode / rolling windows) lives in
-    models/lm.py; cross-attention comes with the encoder slice.
+    x: (B, S, D).  Cache handling (decode / rolling windows) and
+    cross-attention live in models/lm.py.
     """
     B, S, _ = x.shape
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim

@@ -18,7 +18,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as ssdk
 from repro_torch.kernels import wkv6_scan as wkvk
 from repro_torch.models import lm
-from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.engine import ServeEngine, extra_shapes
 
 pytestmark = pytest.mark.cuda
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -65,6 +65,20 @@ def _qkv(dev, dtype, B, S, T, H, KV, D, seed=1):
     (2, 1, 101, 4, 4, 192, "bfloat16", True, None, None, 100),
     (2, 77, 130, 4, 2, 192, "float32", False, None, None, 0),
     (1, 100, 100, 4, 4, 192, "float32", True, 40, 20.0, 0),
+    # whisper-tiny: the non-causal encoder, cross-attention to 1500 frames
+    # at a prompt and at decode (S = 1: one valid row of the 64-row tile,
+    # a ragged last key tile 1500 = 23 x 64 + 28)
+    (4, 1500, 1500, 6, 6, 64, "bfloat16", False, None, None, 0),
+    (4, 400, 1500, 6, 6, 64, "bfloat16", False, None, None, 0),
+    (4, 1, 1500, 6, 6, 64, "bfloat16", False, None, None, 0),
+    (4, 1, 1500, 6, 6, 64, "float32", False, None, None, 0),
+    # llama-3.2-vision-11b: GQA 32:8 self-attention, and cross-attention
+    # to 1600 image tokens at a prompt and at decode
+    (4, 512, 512, 32, 8, 128, "bfloat16", True, None, None, 0),
+    (4, 512, 1600, 32, 8, 128, "bfloat16", False, None, None, 0),
+    (4, 1, 1600, 32, 8, 128, "bfloat16", False, None, None, 0),
+    # starcoder2-15b: GQA 48:4
+    (4, 512, 512, 48, 4, 128, "bfloat16", True, None, None, 0),
 ])
 def test_kernel_vs_plain(cuda_device, B, S, T, H, KV, D, dtype, causal,
                          window, softcap, q_pos0):
@@ -476,7 +490,8 @@ def test_mla_layer_on_the_card_matches_the_cpu(cuda_device, dtype, absorb):
     cfg = _mla_moe_cfg(compute_dtype=dtype, mla_absorb=absorb)
     spec = cfg.superblock[0]
     mod = L.init_mla(torch.Generator().manual_seed(0), cfg, "cpu")
-    card = L.init_mla(torch.Generator().manual_seed(1), cfg, cuda_device)
+    card = L.init_mla(torch.Generator(device=cuda_device).manual_seed(1), cfg,
+                      cuda_device)
     card.load_state_dict(mod.state_dict())
     rng = np.random.default_rng(5)
     x = torch.from_numpy(rng.standard_normal((2, 70, cfg.d_model),
@@ -506,7 +521,8 @@ def test_moe_layer_on_the_card_matches_the_cpu(cuda_device, impl):
     cfg = _mla_moe_cfg(compute_dtype="float32", moe_impl=impl,
                        capacity_factor=0.5)
     mod = MOE.init_moe(torch.Generator().manual_seed(0), cfg, "cpu")
-    card = MOE.init_moe(torch.Generator().manual_seed(1), cfg, cuda_device)
+    card = MOE.init_moe(torch.Generator(device=cuda_device).manual_seed(1), cfg,
+                        cuda_device)
     card.load_state_dict(mod.state_dict())
     x = torch.from_numpy(np.random.default_rng(6).standard_normal(
         (4, 50, cfg.d_model), dtype=np.float32))
@@ -518,7 +534,7 @@ def test_moe_layer_on_the_card_matches_the_cpu(cuda_device, impl):
 
 
 @pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "gemma2-27b",
-                                  "deepseek-v2-lite-16b"])
+                                  "deepseek-v2-lite-16b", "starcoder2-15b"])
 @torch.inference_mode()
 def test_serve_variant_models_launch_per_attention_layer(cuda_device, arch):
     """Full width, depth cut to 2 superblocks: one flash forward per
@@ -540,6 +556,50 @@ def test_serve_variant_models_launch_per_attention_layer(cuda_device, arch):
     plain = ServeEngine(cfg.replace(use_pallas="never"), params, max_len=128)
     lp, _ = plain.prefill_fn(params, toks)
     assert _rel(lk, lp) < 1e-3
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "llama-3.2-vision-11b"])
+@torch.inference_mode()
+def test_serve_encdec_models_launch_per_layer_and_step(cuda_device, arch):
+    """Reduced configs in float32 compute, random extras, every xgate 1.0:
+    a prefill launches the flash forward once per encoder layer, per
+    self-attention and per cross-attention; a decode step once per
+    cross-attention layer (self-attention decode is plain).  Prefill and
+    first decode-step logits match the plain run's."""
+    cfg = registry.reduced_config(arch).replace(compute_dtype="float32")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = lm.init_params(cfg, gen, cuda_device)
+    for p, spec in zip(params.layers, cfg.plan):
+        if spec.kind == "xattn":
+            p.xgate.fill_(1.0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 20), device=cuda_device,
+                         generator=gen)
+    ex = {k: torch.randn(shape, generator=gen, device=cuda_device)
+          for k, shape in extra_shapes(cfg, 2).items()}
+    n_cross = sum(s.kind in ("xattn", "dec") for s in cfg.plan)
+    n_self = sum(s.kind in ("attn", "dec") for s in cfg.plan)
+    assert n_cross == 2
+    logits, tok = {}, None
+    for name, c in (("kernel", cfg), ("plain", cfg.replace(use_pallas="never"))):
+        eng = ServeEngine(c, params, max_len=32)
+        before = fak.launches
+        lk, caches = eng.prefill_fn(params, toks, *ex.values())
+        prefill_launches = fak.launches - before
+        if tok is None:  # both runs decode the kernel run's first token
+            tok = lk[:, -1].argmax(-1)[:, None]
+        before = fak.launches
+        ld, _ = eng.decode_fn(params, tok, caches)
+        decode_launches = fak.launches - before
+        if name == "kernel":
+            assert prefill_launches == cfg.n_enc_layers + n_self + n_cross
+            assert decode_launches == n_cross
+            out = eng.generate(toks, 4, extra=ex)
+            assert out.shape == (2, 4)
+        else:
+            assert prefill_launches == decode_launches == 0
+        logits[name] = (lk, ld)
+    for got, want in zip(logits["kernel"], logits["plain"]):
+        assert _rel(got, want) < 1e-3
 
 
 # max |kernel - plain| / max |plain|: float32 sums in another order; the

@@ -4,6 +4,10 @@ sizes.
 
 Inputs and weights are made on the JAX side (or with numpy from a seed) and
 handed over as numpy arrays; ``convert.params_from_jax`` loads the weights.
+whisper-tiny and llama-3.2-vision-11b get their extras (``enc_embed`` /
+``img_embed``) from a numpy seed, and every llama-vision ``xgate`` a value
+from U(0.5, 1.5) (``pair``).  tests/test_torch_encdec.py imports the
+helpers.
 float32 compute agrees to rel 1e-4; bf16 compute to rel 5e-2, since bf16
 rounds at different places in the two frameworks.
 """
@@ -30,13 +34,14 @@ from repro_torch.models import layers as L
 from repro_torch.models import lm
 from repro_torch.models import rwkv as RW
 from repro_torch.models import ssm as SSM
-from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.engine import ServeEngine, extra_shapes
 
 REL = {"float32": 1e-4, "bfloat16": 5e-2}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 ARCHS = ["jag-surrogate", "granite-3-8b", "rwkv6-3b", "zamba2-1.2b",
-         "phi4-mini-3.8b", "gemma2-27b", "deepseek-v2-lite-16b", "arctic-480b"]
+         "phi4-mini-3.8b", "gemma2-27b", "deepseek-v2-lite-16b", "arctic-480b",
+         "whisper-tiny", "llama-3.2-vision-11b", "starcoder2-15b"]
 # MLA caches are max_len long and never roll (the reference's
 # dynamic_update_slice cannot write a prompt longer than its cache)
 MLA_ARCHS = ("deepseek-v2-lite-16b",)
@@ -100,16 +105,16 @@ def test_configs_match_reference_field_for_field(arch):
         dataclasses.asdict(jreg.reduced_config(arch))
 
 
-def test_unported_archs_and_kinds_raise():
-    with pytest.raises(KeyError, match="not ported"):
-        preg.get_config("whisper-tiny")
+def test_registry_has_the_reference_archs_and_unknown_kinds_raise():
+    assert preg.ARCHS.keys() == jreg.ARCHS.keys()
+    with pytest.raises(KeyError, match="unknown arch"):
+        preg.get_config("no-such-arch")
     cfg = preg.reduced_config("jag-surrogate")
-    for bad, what in ((cfg.replace(superblock=(LayerSpec(kind="xattn"),)),
-                       "xattn"),
-                      (cfg.replace(superblock=(LayerSpec(kind="dec"),)), "dec"),
-                      (cfg.replace(superblock=(LayerSpec(mlp="gelu_mlp"),)),
-                       "gelu_mlp")):
-        with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
+    for bad, what in ((cfg.replace(superblock=(LayerSpec(kind="conv"),)),
+                       "layer kind 'conv'"),
+                      (cfg.replace(superblock=(LayerSpec(mlp="swiglu"),)),
+                       "MLP 'swiglu'")):
+        with pytest.raises(ValueError, match=f"unknown {what}"):
             lm.init_params(bad, torch.Generator().manual_seed(0), "cpu")
 
 
@@ -252,10 +257,28 @@ def test_mamba2_block(dtype):
 # ---------------------------------------------------------------------------
 
 def pair(arch, dtype, seed=0):
+    """Both packages' reduced models from the reference's init.  Every
+    llama-vision ``xgate`` (0 at init, where tanh(0) = 0 hides its
+    cross-attention) is drawn from U(0.5, 1.5)."""
     jc, pc = configs(arch, dtype)
-    jparams = jlm.init_params(jax.random.PRNGKey(seed), jc)
-    model = convert.params_from_jax(to_numpy(jparams), pc, "cpu")
-    return jc, pc, jparams, model
+    tree = to_numpy(jlm.init_params(jax.random.PRNGKey(seed), jc))
+    rng = np.random.default_rng(100 + seed)
+    for blk in tree["blocks"]:
+        if "xgate" in blk:
+            blk["xgate"] = rng.uniform(0.5, 1.5, blk["xgate"].shape).astype(
+                np.float32)
+    model = convert.params_from_jax(tree, pc, "cpu")
+    return jc, pc, jax.tree.map(jnp.asarray, tree), model
+
+
+def extras(cfg, batch, seed=1):
+    """whisper's ``enc_embed`` and llama-vision's ``img_embed`` where the
+    model reads them, N(0, 1) from ``seed``: (for JAX, for the port)."""
+    rng = np.random.default_rng(seed)
+    ex = {k: rng.standard_normal(shape, dtype=np.float32)
+          for k, shape in extra_shapes(cfg, batch).items()}
+    return ({k: jnp.asarray(v) for k, v in ex.items()},
+            {k: torch.from_numpy(v) for k, v in ex.items()})
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -263,10 +286,11 @@ def pair(arch, dtype, seed=0):
 def test_forward_train_logits(arch, dtype):
     jc, pc, jparams, model = pair(arch, dtype)
     toks = np.random.default_rng(4).integers(0, pc.vocab_size, (2, 24)).astype(np.int32)
-    want, want_aux = jlm.forward_train(jparams, jnp.asarray(toks), jc)
+    jex, tex = extras(pc, 2)
+    want, want_aux = jlm.forward_train(jparams, jnp.asarray(toks), jc, jex)
     with torch.no_grad():
-        got, aux = lm.forward_train(model, torch.from_numpy(toks), pc)
-        assert rel_err(model(torch.from_numpy(toks)), want) < REL[dtype]
+        got, aux = lm.forward_train(model, torch.from_numpy(toks), pc, tex)
+        assert rel_err(model(torch.from_numpy(toks), tex), want) < REL[dtype]
     assert got.shape == (2, 24, pc.vocab_size)
     if pc.n_experts:
         for key, val in want_aux.items():
@@ -285,11 +309,13 @@ def test_prefill_then_decode(arch, dtype, extra):
     S = 20
     toks = np.random.default_rng(5).integers(0, pc.vocab_size, (2, S)).astype(np.int32)
     jcache_dt = JDT[dtype]
+    jex, tex = extras(pc, 2, seed=2)
     jl, jcaches = jlm.prefill(jparams, jnp.asarray(toks), jc, max_len=S + extra,
-                              cache_dtype=jcache_dt)
+                              extra=jex, cache_dtype=jcache_dt)
     with torch.no_grad():
         tl, tcaches = lm.prefill(model, torch.from_numpy(toks), pc,
-                                 max_len=S + extra, cache_dtype=TDT[dtype])
+                                 max_len=S + extra, extra=tex,
+                                 cache_dtype=TDT[dtype])
         assert rel_err(tl, jl) < REL[dtype]
         for c_t, c_j in zip(tcaches["layers"], _unstack_caches(jcaches, jc)):
             assert set(c_t) == set(c_j)
@@ -346,8 +372,8 @@ def test_zamba2_prompt_longer_than_decode_window(dtype):
 def test_convert_rejects_unported_params():
     jc, pc = configs("jag-surrogate", "float32")
     tree = to_numpy(jlm.init_params(jax.random.PRNGKey(0), jc))
-    tree["encoder"] = {}
-    with pytest.raises(NotImplementedError, match="encoder"):
+    tree["vision_tower"] = {}
+    with pytest.raises(NotImplementedError, match="vision_tower"):
         convert.params_from_jax(tree, pc, "cpu")
 
 
@@ -371,10 +397,11 @@ def test_untied_head_converts():
 def test_engine_greedy_tokens_match_reference(arch):
     jc, pc, jparams, model = pair(arch, "float32", seed=2)
     toks = np.random.default_rng(7).integers(0, pc.vocab_size, (3, 16)).astype(np.int32)
+    jex, tex = extras(pc, 3, seed=3)
     jeng = JaxServeEngine(jc, jparams, max_len=32, cache_dtype=jnp.float32)
-    want = np.asarray(jeng.generate(jnp.asarray(toks), 6))
+    want = np.asarray(jeng.generate(jnp.asarray(toks), 6, extra=jex))
     eng = ServeEngine(pc, model, max_len=32, cache_dtype=torch.float32)
-    got = eng.generate(torch.from_numpy(toks), 6)
+    got = eng.generate(torch.from_numpy(toks), 6, extra=tex)
     np.testing.assert_array_equal(got.numpy(), want)
     assert set(eng.stats) == set(jeng.stats)
     assert eng.stats["prefill_tokens"] == 3 * 16
