@@ -110,6 +110,31 @@ before each phase and must read 0 after it.
      layer and step, no WKV6 or SSD launch.  Step ms, tokens/s, peak memory,
      and a torch.profiler reading of the device's busy time and idle share
      a step.
+ 12. train_encdec: whisper-tiny at full width and depth through
+     ``python -m repro_torch.launch.train --arch whisper-tiny`` (bf16 frame
+     embeddings in every batch, 8 microbatches a step): 30 steps on the
+     quickstart's bundles, where the loss must fall, and 10 synthetic
+     steps at batch 8 x seq 128 (uniform tokens, nothing to learn); 10
+     float32-compute steps (batch 1) against the CPU port's at rel 1e-3.
+     llama-3.2-vision-11b at full width and 5 of its 40 layers (one
+     xattn, four attn; xgates 1.0) trains 10 steps at batch 8 x seq 128
+     right after the serve phases (its ~60 GB peak does not fit beside the
+     CUDA graph pools that the Merlin phases keep).  Counts exact from the
+     config (a microbatch: each encoder layer 1 forward and 1 backward;
+     each decoder attention 2 forwards, one a recompute, and 1 backward;
+     no WKV6 or SSD); step ms, tokens/s, peak memory, and a torch.profiler
+     reading of busy time and idle share a step;
+ 13. mesh: a one-rank NCCL group and a (1, 1) ("data", "model")
+     DeviceMesh.  The train phase's jag-surrogate checkpoint restored
+     through restore(..., shardings=param_spec_tree(...)), optimizer
+     state included, and two steps under the mesh: each loss equals the
+     unsharded step's within rel 1e-5, the first step's flash launches
+     exact, on the DTensors' local shards, the second step timed warm;
+     int8_psum on one rank equals quantize-dequantize; an EnsembleExecutor
+     over the device tuple (cuda:0, cuda:0) gives the single-device
+     bundles bit for bit for an exact simulator and JAG's within rel 1e-3,
+     with mesh launches; device_mesh() is None on one card.  The group is
+     destroyed at the end, whatever the result.
 The last line is {"ok": true, "device": {...}}.  Without a card, or without
 the rest of the repository beside it, the script exits non-zero before it.
 """
@@ -125,6 +150,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -155,6 +181,7 @@ from repro_torch.data.pipeline import SyntheticTokens  # noqa: E402
 from repro_torch.train.trainer import Trainer  # noqa: E402
 from repro_torch.serve.gateway import SurrogateGateway  # noqa: E402
 from repro_torch.sim import jag_simulate, seir_simulate  # noqa: E402
+from repro_torch.sim import rng as sim_rng  # noqa: E402
 
 # H100 SXM data-sheet peaks (dense): HBM3 bytes/s, bf16 tensor-core FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
@@ -1224,7 +1251,6 @@ def phase_gateway(dev, data):
     """The surrogate gateway on the card under 16 clients, with a refresh
     (retrain and capture) halfway through."""
     import http.client
-    import tempfile
     import threading
     X, y = regression_dataset(data, target="yield")
     first = (3 * len(X)) // 4
@@ -1404,9 +1430,19 @@ BWD_SHAPES = [
     ("f32_D64", 2, 256, 256, 4, 4, 64, F32, True, None, None),
     ("f32_window16_softcap30_gqa", 2, 100, 100, 4, 2, 32, F32, True, 16,
      30.0),
+    # the encoder archs' training shapes (one microbatch row): whisper's
+    # 1500-frame encoder (23 full 64-row tiles and 28 rows), its decoder's
+    # cross-attention (2 query tiles a dK/dV block) and llama-vision's GQA
+    # 32:8 cross-attention over 1600 image tokens
+    ("whisper_enc_1500", 1, 1500, 1500, 6, 6, 64, BF16, False, None, None),
+    ("whisper_cross_128", 1, 128, 1500, 6, 6, 64, BF16, False, None, None),
+    ("llama_vision_cross_128", 1, 128, 1600, 32, 8, 128, BF16, False, None,
+     None),
 ]
 BWD_MAIN = ("jag_train_128", "jag_bundles_8")
-BWD_TIMED = BWD_MAIN + ("zamba2_512", "D128_gqa")
+BWD_ENCDEC = ("whisper_enc_1500", "whisper_cross_128",
+              "llama_vision_cross_128")
+BWD_TIMED = BWD_MAIN + ("zamba2_512", "D128_gqa") + BWD_ENCDEC
 # max |kernel - plain| / max |plain| of dq, dk, dv: float32 sums in another
 # order; the bf16 kernel rounds P and dS to bf16 as operands and its outputs
 # once.  Against the mirror of those rounding points (bf16 only) the rest
@@ -1577,21 +1613,28 @@ PROFILE_STEPS = 5
 
 def profile_steps(tr, step_ms):
     """Device time of PROFILE_STEPS steps of ``tr`` (restored from its last
-    checkpoint) under torch.profiler, by kernel group, and the device's idle
-    share of a step: 1 - device busy per step / ``step_ms`` (the median
-    step wall of the same run without the profiler).  Kernels run on one
-    stream, so their summed times are the busy time.  None where the
-    profiler records no device event."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    checkpoint) under torch.profiler: see ``profile_run``."""
     state = tr.restore_or_init()
     batches = [next(tr.data) for _ in range(PROFILE_STEPS + 1)]
-    state, m = tr.step_fn(state, batches[0])  # warm
+    return profile_run(tr.step_fn, state, batches, step_ms)
+
+
+def profile_run(step_fn, state, batches, step_ms):
+    """Device time of the steps of ``batches[1:]`` (``batches[0]`` warms)
+    under torch.profiler, by kernel group, and the device's idle share of a
+    step: 1 - device busy per step / ``step_ms`` (the median step wall of
+    the same run without the profiler).  Kernels run on one stream, so
+    their summed times are the busy time.  None where the profiler records
+    no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    n = len(batches) - 1
+    state, m = step_fn(state, batches[0])  # warm
     float(m["loss"])
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for b in batches[1:]:
-            state, m = tr.step_fn(state, b)
+            state, m = step_fn(state, b)
         float(m["loss"])
         torch.cuda.synchronize()
     groups, n_events = {}, 0
@@ -1599,38 +1642,46 @@ def profile_steps(tr, step_ms):
         if e.device_type != DeviceType.CUDA:
             continue
         n_events += 1
-        name = ("flash_fwd" if "flash_fwd" in e.name else
-                "flash_bwd" if "flash_bwd" in e.name else
-                "gemm" if "gemm" in e.name.lower() else "other")
+        low = e.name.lower()
+        name = ("flash_fwd" if "flash_fwd" in low else
+                "flash_bwd" if "flash_bwd" in low else
+                "gemm" if any(f in low for f in _GEMM) else
+                "copy_cast" if any(f in low for f in _COPY) else "other")
         groups[name] = groups.get(name, 0.0) + e.time_range.elapsed_us()
     if not n_events:
         return {"device_busy_ms_per_step": None, "idle_share": None}
-    busy = sum(groups.values()) / 1e3 / PROFILE_STEPS
+    busy = sum(groups.values()) / 1e3 / n
     return {"device_busy_ms_per_step": busy,
             "device_ms_per_step_by_group": {
-                k: v / 1e3 / PROFILE_STEPS for k, v in sorted(groups.items())},
-            "device_events_per_step": n_events / PROFILE_STEPS,
+                k: v / 1e3 / n for k, v in sorted(groups.items())},
+            "device_events_per_step": n_events / n,
             "step_ms": step_ms, "idle_share": 1.0 - busy / step_ms}
 
 
-def phase_train(data):
+def _write_study(data, root):
+    """The quickstart study's archive written back as bundles of
+    quickstart.BUNDLE under ``root``; returns ``root``."""
+    n = len(data["inputs"])
+    for lo in range(0, n, quickstart.BUNDLE):
+        Bundler(root).write_bundle(lo, min(n, lo + quickstart.BUNDLE), {
+            k: v[lo:lo + quickstart.BUNDLE] for k, v in data.items()
+            if not k.startswith("_")})
+    return root
+
+
+def phase_train(data, keep):
     """jag-surrogate at full width through launch.train on the card: on
     the quickstart study's bundles (its archive, written back as bundles of
     64) for TRAIN_BUNDLE_STEPS, where the loss must fall; resumed from its
     last checkpoint; synthetic at batch 8 x seq 128; then launch.train's
     Trainer in float32 compute on the card against the same on the CPU,
-    from one seed and one batch stream.  Returns the card runs' summed
-    launch counts."""
-    import tempfile
+    from one seed and one batch stream.  The synthetic run's checkpoints
+    are copied to ``keep`` (for the mesh phase).  Returns the card runs'
+    summed launch counts."""
     cfg = registry.get_config("jag-surrogate")
     total = {name: 0 for name in KERNELS}
     with tempfile.TemporaryDirectory() as tmp:
-        root = os.path.join(tmp, "study")
-        n = len(data["inputs"])
-        for lo in range(0, n, quickstart.BUNDLE):
-            Bundler(root).write_bundle(lo, min(n, lo + quickstart.BUNDLE), {
-                k: v[lo:lo + quickstart.BUNDLE] for k, v in data.items()
-                if not k.startswith("_")})
+        root = _write_study(data, os.path.join(tmp, "study"))
         wd = os.path.join(tmp, "bundles")
         runs = [
             ("bundles", ["--data", root, "--steps", str(TRAIN_BUNDLE_STEPS),
@@ -1651,17 +1702,14 @@ def phase_train(data):
             trainers[label] = tr
             for name, k in launches.items():
                 total[name] += k
+        shutil.copytree(trainers["synthetic"].ckpt.root, keep)
         for label in ("synthetic", "bundles"):
             tr = trainers[label]
             dts = sorted(h["dt"] for h in tr.history[1:])
             say("train_profile", run=label, profiled_steps=PROFILE_STEPS,
                 **profile_steps(tr, 1e3 * statistics.median(dts)), **_card())
-        hist = trainers["bundles"].history
-        first = statistics.mean(h["loss"] for h in hist[:10])
-        last = statistics.mean(h["loss"] for h in hist[-10:])
-        if not last < first:
-            raise RuntimeError(f"train on bundles: the loss did not fall "
-                               f"({first} -> {last})")
+        first, last = _loss_fell("train on bundles",
+                                 trainers["bundles"].history)
         resumed = trainers["bundles_resumed"].history
         if resumed[0]["step"] != TRAIN_BUNDLE_STEPS + 1 or len(resumed) != \
                 TRAIN_RESUME_STEPS:
@@ -1701,6 +1749,322 @@ def phase_train(data):
                            f"by rel {rel}")
     _free()
     return total
+
+
+ENCDEC_BUNDLE_STEPS = 30      # whisper-tiny on the quickstart's bundles
+ENCDEC_SYNTH_STEPS = 10       # ... and on synthetic tokens, batch 8 x 128
+ENCDEC_F32_STEPS = 10         # float32 compute, card against the CPU port
+ENCDEC_F32_BATCH = 1          # ... at batch 1 (a CPU step takes ~1.5 s)
+VISION_LAYERS = 5             # llama-vision: one xattn and four attn layers
+VISION_STEPS = 10
+
+
+def _encdec_launches(cfg, steps):
+    """Exact counts of a training run of an encoder arch under remat="full",
+    from the config: a microbatch runs each encoder layer's non-causal
+    flash forward once (the encoder runs outside remat, as the reference's
+    unrematted scan does) and its backward once, and each attention of a
+    decoder layer (dec: self and cross; attn and xattn: one) forward twice
+    (once more in the recompute) and backward once."""
+    if cfg.remat != "full" or cfg.prologue:
+        raise RuntimeError(f"{cfg.arch_id}: remat {cfg.remat!r}, prologue "
+                           f"{cfg.prologue}")
+    n_mb = max(1, cfg.microbatch) * steps
+    attn = sum({"dec": 2, "attn": 1, "xattn": 1}[spec.kind]
+               for spec in cfg.plan)
+    return {"flash_attention": n_mb * (cfg.n_enc_layers + 2 * attn),
+            "flash_attention_bwd": n_mb * (cfg.n_enc_layers + attn),
+            "wkv6_scan": 0, "ssd_scan": 0}
+
+
+def _loss_fell(label, history):
+    first = statistics.mean(h["loss"] for h in history[:10])
+    last = statistics.mean(h["loss"] for h in history[-10:])
+    if not last < first:
+        raise RuntimeError(f"{label}: the loss did not fall ({first} -> "
+                           f"{last})")
+    return first, last
+
+
+def phase_train_encdec(dev, data):
+    """whisper-tiny at full width and depth through launch.train, with
+    random bf16 frame embeddings in every batch: ENCDEC_BUNDLE_STEPS steps
+    on the quickstart study's bundles (``data``, the archive), where the
+    loss must fall, and ENCDEC_SYNTH_STEPS on synthetic tokens at batch 8 x
+    seq 128 (uniform tokens: nothing to learn, so no fall is asked), both
+    with exact launch counts, the synthetic run profiled; then
+    ENCDEC_F32_STEPS float32-compute steps on the
+    card against the CPU port from one seed and batch stream.  Returns the
+    card runs' summed launch counts."""
+    total = {name: 0 for name in KERNELS}
+    cfg = registry.get_config("whisper-tiny")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = _write_study(data, os.path.join(tmp, "study"))
+        runs = [("whisper_bundles",
+                 ["--data", root, "--steps", str(ENCDEC_BUNDLE_STEPS)],
+                 ENCDEC_BUNDLE_STEPS, 8 * RECORD_SEQ),
+                ("whisper_synthetic", ["--seq", "128", "--steps",
+                                       str(ENCDEC_SYNTH_STEPS)],
+                 ENCDEC_SYNTH_STEPS, 8 * 128)]
+        trainers = {}
+        for label, args, steps, tokens in runs:
+            _, tr, launches = _train_run(
+                label, ["--arch", "whisper-tiny", "--batch", "8",
+                        "--ckpt-every", str(steps), "--workdir",
+                        os.path.join(tmp, label)] + args,
+                tokens, _encdec_launches(cfg, steps))
+            trainers[label] = tr
+            for name, k in launches.items():
+                total[name] += k
+        fell = _loss_fell("whisper-tiny on bundles",
+                          trainers["whisper_bundles"].history)
+        tr = trainers["whisper_synthetic"]
+        dts = sorted(h["dt"] for h in tr.history[1:])
+        say("train_profile", run="whisper_synthetic",
+            profiled_steps=PROFILE_STEPS,
+            **profile_steps(tr, 1e3 * statistics.median(dts)), **_card())
+        cfg32 = cfg.replace(compute_dtype="float32",
+                            microbatch=ENCDEC_F32_BATCH)
+        extras = {"enc_embed": ((ENCDEC_F32_BATCH, cfg.enc_len, cfg.d_model),
+                                "bfloat16")}
+        f32 = {}
+        for where in ("cuda", "cpu"):
+            _zero_launches()
+            tr = Trainer(cfg32, os.path.join(tmp, f"f32_{where}"),
+                         launch_train.with_extras(SyntheticTokens(
+                             ENCDEC_F32_BATCH, 128, cfg.vocab_size), extras),
+                         ckpt_every=ENCDEC_F32_STEPS, device=where)
+            tr.train(ENCDEC_F32_STEPS)
+            launches = _launches()
+            want = (_encdec_launches(cfg32, ENCDEC_F32_STEPS)
+                    if where == "cuda" else {name: 0 for name in KERNELS})
+            dts = sorted(h["dt"] for h in tr.history[1:])
+            say("train", run=f"whisper_float32_{where}",
+                steps=ENCDEC_F32_STEPS, batch=ENCDEC_F32_BATCH,
+                expected_launches=want, kernel_launches=launches,
+                step_ms_median=1e3 * statistics.median(dts), **_card())
+            if launches != want:
+                raise RuntimeError(f"whisper float32 {where}: kernel launches "
+                                   f"{launches}, expected {want}")
+            if where == "cuda":
+                for name, k in launches.items():
+                    total[name] += k
+            f32[where] = np.array([h["loss"] for h in tr.history])
+    got, want = f32["cuda"], f32["cpu"]
+    rel = float(abs(got - want).max() / abs(want).max())
+    say("train_parity", arch="whisper-tiny", steps=ENCDEC_F32_STEPS,
+        loss_rel=rel, rel_tol=FP32_TRAIN_REL, card_losses=got.tolist(),
+        cpu_losses=want.tolist(), loss_fell_bundles=list(fell))
+    if not rel < FP32_TRAIN_REL:
+        raise RuntimeError(f"whisper float32 training on the card and the "
+                           f"CPU differ by rel {rel}")
+    _free()
+    return total
+
+
+def phase_train_vision(dev):
+    """llama-3.2-vision-11b at full width and VISION_LAYERS of its 40
+    layers (every xgate 1.0, so its cross-attention reaches the loss),
+    VISION_STEPS steps through make_train_step with exact counts, its peak
+    memory (~60 GB) and a profiled reading.  It runs before the Merlin
+    phases, whose executors keep their CUDA graphs' memory pools for the
+    rest of the process.  Returns the launch counts."""
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.trainstep import init_state, make_train_step
+    full = registry.get_config("llama-3.2-vision-11b")
+    cfg = full.replace(n_repeat=1, n_layers=len(full.superblock))
+    if cfg.n_layers != VISION_LAYERS:
+        raise RuntimeError(f"llama-vision cut to {cfg.n_layers} layers")
+    opt = make_optimizer(cfg.optimizer, lr=3e-4)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(torch.Generator(device=dev).manual_seed(0), cfg, opt)
+    with torch.no_grad():
+        for layer, spec in zip(state.params.layers, cfg.plan):
+            if spec.kind == "xattn":
+                layer.xgate.fill_(1.0)
+    n_params = sum(p.numel() for p in state.params.parameters())
+    step = make_train_step(cfg, opt)
+    data = launch_train.with_extras(
+        SyntheticTokens(8, 128, cfg.vocab_size),
+        {"img_embed": ((8, cfg.n_img_tokens, cfg.d_vision), "bfloat16")})
+    _zero_launches()
+    losses, dts = [], []
+    for _ in range(VISION_STEPS):
+        batch = next(data)
+        t0 = time.monotonic()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        dts.append(time.monotonic() - t0)
+    launches = _launches()
+    want = _encdec_launches(cfg, VISION_STEPS)
+    med = statistics.median(sorted(dts[1:]))
+    say("train", run="llama_vision_5_layers", arch=cfg.arch_id,
+        layers=cfg.n_layers, params=n_params, steps=VISION_STEPS,
+        expected_launches=want, kernel_launches=launches, losses=losses,
+        step_ms_median=1e3 * med, tokens_per_s_at_median=8 * 128 / med,
+        max_memory_allocated=torch.cuda.max_memory_allocated(), **_card())
+    if launches != want:
+        raise RuntimeError(f"llama-vision: kernel launches {launches}, "
+                           f"expected {want}")
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"llama-vision: non-finite loss {losses}")
+    batches = [next(data) for _ in range(3)]
+    say("train_profile", run="llama_vision_5_layers", profiled_steps=2,
+        **profile_run(step, state, batches, 1e3 * med), **_card())
+    del state, step, batches
+    _free()
+    return launches
+
+
+MESH_LOSS_REL = 1e-5          # the (1, 1) mesh step against the plain one
+MESH_JAG_REL = 1e-3           # JAG's split bundles against one program
+
+
+def exact_sim(u, draws):
+    """An IEEE-exact simulator (add/mul/div/sqrt and the rows' uniform
+    draws): the split must give the single-device bundles bit for bit."""
+    s = u * 2.0 + 0.25
+    return {"v": s / (1.0 + u) + draws["noise"] * 0.001,
+            "w": torch.sqrt(s), "s": (u * u).sum(-1)}
+
+
+exact_sim.draws_fn = lambda seeds, device=None: {
+    "noise": sim_rng.uniform(seeds, 0, 5)}
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_mesh(dev, ckpt_root):
+    """The sharded path on a one-rank NCCL group and a (1, 1) ("data",
+    "model") DeviceMesh: the train phase's jag-surrogate checkpoint
+    restored through restore(..., shardings=param_spec_tree(...)) with
+    its optimizer state, two steps under the mesh against the same steps
+    unsharded (losses within MESH_LOSS_REL, the first step's flash
+    launches exact, on the DTensors' local shards, the second timed
+    warm); int8_psum on one rank against quantize-dequantize; an
+    EnsembleExecutor over the device tuple (cuda:0, cuda:0) against one
+    device (the exact simulator bit for bit, JAG within MESH_JAG_REL, the
+    mesh used); device_mesh() None on one card.  The group is destroyed at
+    the end, whatever the result.  Returns the launch counts."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.parallel.collectives import int8_psum
+    from repro_torch.parallel.sharding import param_spec_tree
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.trainer import state_tree
+    from repro_torch.train.trainstep import (init_state, make_train_step,
+                                             named_params, opt_shardings,
+                                             place_params)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        cfg = registry.get_config("jag-surrogate")
+        opt = make_optimizer(cfg.optimizer, lr=3e-4)
+        ckpt = CheckpointManager(ckpt_root)
+        latest = ckpt.latest_step()
+        batch = SyntheticTokens(8, 128, cfg.vocab_size).batch_at(latest)
+        runs = {}
+        for label in ("unsharded", "mesh"):
+            state = init_state(torch.Generator().manual_seed(1), cfg, opt,
+                               dev)
+            shardings = None
+            if label == "mesh":
+                named = named_params(state.params)
+                specs = param_spec_tree(named, mesh)
+                shardings = (specs, opt_shardings(state.opt, named, specs),
+                             None)
+            params, opt_state, step = ckpt.restore(latest, state_tree(state),
+                                                   shardings)
+            place_params(state.params, params)
+            state = state._replace(opt=opt_state, step=step)
+            if label == "mesh" and not all(
+                    isinstance(p, DTensor)
+                    for p in named_params(state.params).values()):
+                raise RuntimeError("the restored parameters are not DTensors")
+            step_fn = make_train_step(cfg, opt, mesh=mesh if label == "mesh"
+                                      else None)
+            _zero_launches()
+            t0 = time.monotonic()
+            state, m = step_fn(state, batch)
+            loss = float(m["loss"])
+            runs[label] = {"loss": loss, "grad_norm": float(m["grad_norm"]),
+                           "step_ms": 1e3 * (time.monotonic() - t0),
+                           "launches": _launches()}
+            # a second, warm step from the placed optimizer state: its
+            # wall time apart from the first step's cold start
+            t0 = time.monotonic()
+            _, m = step_fn(state, SyntheticTokens(
+                8, 128, cfg.vocab_size).batch_at(latest + 1))
+            runs[label]["loss_2"] = float(m["loss"])
+            runs[label]["warm_step_ms"] = 1e3 * (time.monotonic() - t0)
+        want = _train_launches(cfg, 1)
+        rel = max(abs(runs["mesh"][k] - runs["unsharded"][k])
+                  / abs(runs["unsharded"][k]) for k in ("loss", "loss_2"))
+        ok = (rel < MESH_LOSS_REL and runs["mesh"]["launches"] == want
+              and runs["unsharded"]["launches"] == want)
+        say("mesh", check="train_step", restored_step=latest,
+            mesh_shape={"data": 1, "model": 1}, expected_launches=want,
+            **runs,
+            loss_rel=rel, rel_tol=MESH_LOSS_REL, ok=ok)
+        if not ok:
+            raise RuntimeError(f"mesh step: {runs}, rel {rel}")
+        launches = runs["mesh"]["launches"]
+        x = torch.randn(64, 16, generator=torch.Generator(device=dev)
+                        .manual_seed(3), device=dev)
+        got = int8_psum(x)
+        scale = torch.clamp_min(x.abs().max(), 1e-12) / 127.0
+        qdq = torch.clamp(torch.round(x / scale), -127, 127) * scale
+        psum_equal = bool(torch.equal(got, qdq))
+        say("mesh", check="int8_psum", equal=psum_equal)
+        if not psum_equal:
+            raise RuntimeError("int8_psum on one rank is not "
+                               "quantize-dequantize")
+    finally:
+        dist.destroy_process_group()
+    sizes = [32, 32, 16, 5]
+    blocks = [np.random.default_rng(5).random((n, 5)).astype(np.float32)
+              for n in sizes]
+    for sim, exact in ((exact_sim, True), (jag_simulate, False)):
+        outs = {}
+        for label, mesh_arg in (("single", None), ("split", (dev, dev))):
+            ex = ens.EnsembleExecutor(sim, mesh=mesh_arg, device=dev,
+                                      share_cache=False)
+            lo, outs[label] = 0, []
+            for blk in blocks:
+                outs[label].append(ex.run_bundle(lo, lo + len(blk), blk))
+                lo += len(blk)
+            outs[f"{label}_stats"] = dict(ex.stats)
+        equal = all(np.array_equal(a[k], b[k], equal_nan=True)
+                    for a, b in zip(outs["single"], outs["split"]) for k in a)
+        rel = max(_row_rel(b[k], a[k]) for a, b in zip(outs["single"],
+                                                        outs["split"])
+                  for k in a)
+        ml = outs["split_stats"]["mesh_launches"]
+        ok = ((equal if exact else rel <= MESH_JAG_REL) and ml >= 1
+              and outs["split_stats"]["devices"] == 2
+              and outs["single_stats"]["mesh_launches"] == 0)
+        say("mesh", check="ensemble", simulator=sim.__name__, sizes=sizes,
+            bit_equal=equal, max_row_rel=rel, mesh_launches=ml,
+            devices=outs["split_stats"]["devices"], ok=ok)
+        if not ok:
+            raise RuntimeError(f"ensemble split over (cuda:0, cuda:0) "
+                               f"disagrees: {sim.__name__}, equal {equal}, "
+                               f"rel {rel}, mesh launches {ml}")
+    if ens.device_mesh() is not None:
+        raise RuntimeError(f"device_mesh() on one card: {ens.device_mesh()}")
+    say("mesh", check="device_mesh", device_mesh=None,
+        device_count=torch.cuda.device_count())
+    _free()
+    return launches
 
 
 SOURCES = {
@@ -1744,14 +2108,22 @@ def main() -> int:
     for arch in SERVE:  # each model's counts are read around its own run
         for name, n in phase_serve(dev, arch).items():
             launches[name] += n
+    for name, n in phase_train_vision(dev).items():
+        launches[name] += n
     phase_merlin(dev)
     data = phase_merlin_net(dev)
     phase_gateway(dev, data)
     phase_cascade(dev)
     phase_icf(dev)
     phase_optimization_loop(dev)
-    for name, n in phase_train(data).items():
-        launches[name] += n
+    with tempfile.TemporaryDirectory() as keep:
+        ckpt = os.path.join(keep, "jag_ckpt")
+        for name, n in phase_train(data, ckpt).items():
+            launches[name] += n
+        for name, n in phase_train_encdec(dev, data).items():
+            launches[name] += n
+        for name, n in phase_mesh(dev, ckpt).items():
+            launches[name] += n
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{name}.cu",

@@ -1,11 +1,12 @@
-"""Architecture registry of the port: ``--arch <id>`` resolution and reduced
-configs for CPU tests.  ``ARCHS`` holds the reference's eleven
+"""Architecture registry of the port: ``--arch <id>`` resolution, reduced
+configs for CPU tests and per-arch sharding-rule overrides
+(``parallel/sharding.py``).  ``ARCHS`` holds the reference's eleven
 architectures."""
 from __future__ import annotations
 
 import importlib
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 from repro_torch.configs.base import ModelConfig
 
@@ -23,6 +24,14 @@ ARCHS = {
     "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
 }
 
+# per-arch logical->physical rule overrides (see parallel/sharding.py)
+ARCH_RULES: Dict[str, Dict] = {
+    # whisper-tiny is far too small for tensor parallelism on 256 chips:
+    # run it pure-DP with batch over every mesh axis.
+    "whisper-tiny": {"batch": ("pod", "data", "model"), "fsdp": (),
+                     "tensor": (), "vocab": (), "heads": ()},
+}
+
 
 def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in ARCHS:
@@ -30,6 +39,10 @@ def get_config(arch_id: str) -> ModelConfig:
     cfg = importlib.import_module(ARCHS[arch_id]).get_config()
     cfg.validate()
     return cfg
+
+
+def arch_rules(arch_id: str) -> Optional[Dict]:
+    return ARCH_RULES.get(arch_id)
 
 
 def reduced_config(arch_id: str) -> ModelConfig:

@@ -42,9 +42,22 @@ run as one launch and still write one bundle file per original sub-task.
 Under the engine's write pipeline the host copy and the bundle writes run
 later on its writer thread (``defer_write``).
 
-Multi-device dispatch (the reference's ``shard_map`` over a mesh) comes
-with a later slice: ``mesh="auto"`` resolves to one device, and an
-explicit mesh raises.
+Multi-device dispatch
+---------------------
+The reference ``shard_map``s a bucket over a 1-D mesh of the process's
+local devices.  The executor is one process, so its mesh here is a tuple
+of devices: :func:`device_mesh` gives the local CUDA devices (None on a
+host with one).  A bucket whose size divides the device count splits into
+contiguous blocks of n/ndev rows, block j on device j with seeds
+``lo + j*n/ndev ...``: one program (one CUDA graph) a device and bucket,
+launched on each device in turn (the replays run concurrently), the
+outputs concatenated in row order.  Rows are independent and a row's
+draws depend on its seed alone, so the split gives the single-device
+result bit for bit where the simulator's arithmetic is exact per element.
+A bucket that does not divide runs on one device.  ``stats["devices"]``
+and ``stats["mesh_launches"]`` count as the reference's do.  A tuple of
+repeated devices (``("cpu",) * 4``) splits the same way, which is how the
+CPU tests hold the split to one device.
 """
 from __future__ import annotations
 
@@ -68,6 +81,16 @@ _TRACE_COUNT = 0
 # step, core/active.py), and every (copy in, replay, copy out) of an
 # executor's graph, across the threads of this process
 _GRAPH_LOCK = threading.RLock()
+
+
+def device_mesh(axis: str = "data") -> Optional[Tuple[torch.device, ...]]:
+    """The local CUDA devices of this process, as the executor's mesh;
+    None on a host with at most one.  ``axis`` names the reference's mesh
+    axis; a tuple of devices has one axis."""
+    n = torch.cuda.device_count()
+    if n <= 1:
+        return None
+    return tuple(torch.device("cuda", i) for i in range(n))
 
 
 def _count_trace() -> None:
@@ -119,16 +142,22 @@ class _Program:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         if device.type != "cuda":
             return
-        self.x = torch.zeros(n, d, device=device)
-        self.seeds = torch.arange(n, device=device, dtype=torch.int64)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            self._call(simulator, self.x, self.seeds)  # warm-up: libraries
-        torch.cuda.current_stream(device).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            self.out = self._call(simulator, self.x, self.seeds)
+        # the program's device is current for the capture, and the capture
+        # stream is its own: torch.cuda.graph's default capture stream
+        # lives on whichever device first captured, and work on another
+        # device's stream is never recorded (the graph comes out empty)
+        with torch.cuda.device(device):
+            self.x = torch.zeros(n, d, device=device)
+            self.seeds = torch.arange(n, device=device, dtype=torch.int64)
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                self._call(simulator, self.x, self.seeds)  # warm-up
+            torch.cuda.current_stream(device).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                self.out = self._call(simulator, self.x, self.seeds)
 
     def _call(self, simulator: Callable, x: torch.Tensor,
               seeds: torch.Tensor):
@@ -145,7 +174,7 @@ class _Program:
             seeds = torch.arange(lo, lo + self.n, dtype=torch.int64)
             out = self._call(simulator, x, seeds)
             return {k: v[:n_real] for k, v in out.items()}
-        with _GRAPH_LOCK:
+        with _GRAPH_LOCK, torch.cuda.device(self.device):
             self.x.copy_(torch.from_numpy(batch))
             torch.arange(lo, lo + self.n, out=self.seeds)
             self.graph.replay()
@@ -165,19 +194,24 @@ class EnsembleExecutor:
         makes the rows' draws (else the draws are empty).
 
         ``device``: ``cuda`` unless ``cpu`` is asked for (raises without a
-        card).  ``mesh``: ``"auto"`` and None run on one device; an
-        explicit mesh raises until multi-device dispatch is ported.
+        card).  ``mesh="auto"`` (default) resolves to :func:`device_mesh`
+        on the card (None on one card, and on the CPU); ``mesh=None`` runs
+        on ``device``; an explicit tuple of devices splits every bucket
+        that divides its length over them.
         """
-        if mesh != "auto" and mesh is not None:
-            raise NotImplementedError(
-                "multi-device dispatch of the ensemble executor comes with "
-                "a later slice of the port; pass mesh=None or 'auto'")
         self.simulator = simulator
         self.draws_fn = getattr(simulator, "draws_fn", None)
         self.bundler = bundler
         self.data_axis = data_axis
-        self.mesh = None
         self.device = env.device(device)
+        if mesh == "auto":
+            mesh = device_mesh(data_axis) if self.device.type == "cuda" \
+                else None
+        if mesh is not None and not isinstance(mesh, (tuple, list)):
+            raise TypeError(f"mesh={mesh!r}: the executor takes 'auto', "
+                            "None or a tuple of devices")
+        self.mesh = None if mesh is None else tuple(torch.device(d)
+                                                    for d in mesh)
         self.bucketed = bucketed
         self.share_cache = share_cache
         self._private: Dict[Tuple, _Program] = {}
@@ -186,13 +220,23 @@ class EnsembleExecutor:
         self.stats = {"bundles": 0, "samples": 0, "sim_time": 0.0,
                       "write_s": 0.0,
                       "compiles": 0, "launches": 0, "padded_samples": 0,
-                      "mesh_launches": 0, "devices": 1}
+                      "mesh_launches": 0,
+                      "devices": 1 if self.mesh is None else len(self.mesh)}
 
-    def _compiled(self, n: int, d: int) -> _Program:
-        """The bucket-n program (cached; shared process-wide unless this
-        executor opted out).  Built under the graph lock: a capture sees no
-        other thread's replay."""
-        key = (self.device, d, n)
+    def _mesh_divides(self, n: int) -> bool:
+        """True when size-n batches split evenly over the mesh.  Power-of-
+        two buckets >= a power-of-two device count always do, so the
+        bucket padding doubles as the sharding grid; smaller buckets (or
+        odd meshes) fall back to single-device dispatch."""
+        return self.mesh is not None and n % len(self.mesh) == 0
+
+    def _compiled(self, n: int, d: int, device=None) -> _Program:
+        """The bucket-n program on ``device`` (default: the executor's)
+        (cached; shared process-wide unless this executor opted out).
+        Built under the graph lock: a capture sees no other thread's
+        replay."""
+        device = device or self.device
+        key = (device, d, n)
         if self.share_cache:
             with _CACHE_LOCK:
                 cache = _SHARED.setdefault(self.simulator, {})
@@ -204,7 +248,7 @@ class EnsembleExecutor:
                 prog = cache.get(key)
                 if prog is None:
                     prog = _Program(self.simulator, self.draws_fn, n, d,
-                                    self.device)
+                                    device)
                     cache[key] = prog
                     _count_trace()
                     self._count(compiles=1)
@@ -239,10 +283,13 @@ class EnsembleExecutor:
         padded = bucket_for(n) if self.bucketed else n
         # a writable float32 copy: torch takes no read-only numpy array
         batch = np.array(pad_rows(samples, padded), np.float32, order="C")
-        out = self._compiled(padded, batch.shape[1])(self.simulator, batch,
-                                                      lo, n)
+        if self._mesh_divides(padded):
+            out = self._split(batch, lo, n)
+        else:
+            out = self._compiled(padded, batch.shape[1])(
+                self.simulator, batch, lo, n)
         self._count(bundles=1, samples=n, padded_samples=padded - n,
-                    launches=1)
+                    launches=1, mesh_launches=int(self._mesh_divides(padded)))
         if self.bundler is not None:
             spans = tuple(sub_ranges or ((lo, hi),))
 
@@ -263,6 +310,21 @@ class EnsembleExecutor:
             out = _host(out)
         self._count(sim_time=time.monotonic() - t0)
         return out
+
+    def _split(self, batch: np.ndarray, lo: int, n: int
+               ) -> Dict[str, torch.Tensor]:
+        """The padded ``batch`` in contiguous blocks, block j on mesh
+        device j with seeds from ``lo + j * block``; the real rows of the
+        outputs in row order, on the first device."""
+        blk = len(batch) // len(self.mesh)
+        parts = []
+        for j, dev in enumerate(self.mesh):
+            prog = self._compiled(blk, batch.shape[1], dev)
+            n_real = min(blk, max(0, n - j * blk))
+            parts.append(prog(self.simulator, batch[j * blk:(j + 1) * blk],
+                              lo + j * blk, n_real))
+        return {k: torch.cat([p[k].to(self.mesh[0]) for p in parts])
+                for k in parts[0]}
 
     def _count(self, **deltas) -> None:
         with self._stats_lock:

@@ -2,9 +2,10 @@
 ``repro/kernels/ops.py``).
 
 Dispatch policy (``use_pallas``, the reference's field name):
-  * ``"auto"``  — the CUDA kernel for a CUDA tensor, the plain version for a
-                  CPU tensor.  No fallback: a CUDA tensor the kernel cannot
-                  take raises.
+  * ``"auto"``  — the CUDA kernel for a CUDA tensor, the plain version on
+                  every other device (cpu, meta), as the reference takes its
+                  plain path on every device but a TPU.  No fallback: a CUDA
+                  tensor the kernel cannot take raises.
   * ``"never"`` — always the plain version (tests and ``chip_smoke.py``'s
                   yardstick; the main path never sets it).
 
@@ -13,6 +14,10 @@ autograd, as the reference differentiates its plain path.  On a CUDA tensor
 ``flash_attention`` under grad goes through the wrapper's autograd Function
 (the forward kernel with its row log-sum-exp, then the backward kernel);
 ``wkv6_scan`` and ``ssd_scan`` have no backward kernel yet and raise there.
+
+DTensors (a training step under a mesh) reach the kernels as each rank's
+local batch rows, through ``parallel.sharding.on_local_shards``
+(``local_map``): the dispatch above then reads the local shard's device.
 
 The scans pad a ragged S to a multiple of ``chunk`` as the reference does
 (zeros; w with 1.0, whose log-decay 0 makes the padding inert) and slice the
@@ -27,22 +32,26 @@ from repro_torch.kernels import flash_attention as fak
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as ssdk
 from repro_torch.kernels import wkv6_scan as wkvk
+from repro_torch.parallel.sharding import on_local_shards
 
 
 def _use_kernel(use_pallas, x) -> bool:
     if use_pallas not in ("auto", "never"):
         raise ValueError(f"use_pallas={use_pallas!r}: the port takes "
                          "'auto' or 'never'")
-    return use_pallas == "auto" and x.device.type != "cpu"
+    return use_pallas == "auto" and x.device.type == "cuda"
 
 
 def flash_attention(q, k, v, *, causal=True, scale=None, softcap_val=None,
                     window=None, q_pos0=0, use_pallas="auto"):
     kw = dict(causal=causal, scale=scale, softcap_val=softcap_val,
               window=window, q_pos0=q_pos0)
-    if _use_kernel(use_pallas, q):
-        return fak.flash_attention(q, k, v, **kw)
-    return ref.flash_attention_ref(q, k, v, **kw)
+
+    def local(q, k, v):
+        if _use_kernel(use_pallas, q):
+            return fak.flash_attention(q, k, v, **kw)
+        return ref.flash_attention_ref(q, k, v, **kw)
+    return on_local_shards(local, q, k, v)
 
 
 def decode_attention(q, ck, cv, *, kv_len, scale=None, softcap_val=None,
@@ -66,6 +75,12 @@ def _pad_seq(arrs, chunk, value=0.0):
 
 
 def ssd_scan(x, dt, A, B_, C, *, chunk=128, use_pallas="auto"):
+    return on_local_shards(lambda *a: _ssd_scan(*a, chunk=chunk,
+                                                use_pallas=use_pallas),
+                           x, dt, A, B_, C)
+
+
+def _ssd_scan(x, dt, A, B_, C, *, chunk, use_pallas):
     S = x.shape[1]
     chunk = min(chunk, S)
     # zero-pad ragged sequences: x=0, dt=0 contribute nothing to the state
@@ -85,6 +100,12 @@ def ssd_decode(h, x, dt, A, B_, C):
 
 def wkv6_scan(r, k, v, w, u, *, chunk=128, use_pallas="auto", impl="chunked",
               subchunk=16):
+    return on_local_shards(lambda *a: _wkv6_scan(
+        *a, chunk=chunk, use_pallas=use_pallas, impl=impl, subchunk=subchunk),
+        r, k, v, w, u)
+
+
+def _wkv6_scan(r, k, v, w, u, *, chunk, use_pallas, impl, subchunk):
     S = r.shape[1]
     chunk = min(chunk, S)
     # pad ragged sequences: r/k/v = 0 and w = 1 (log-decay 0) are inert

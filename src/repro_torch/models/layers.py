@@ -23,6 +23,7 @@ from torch import nn
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.parallel.sharding import on_local_shards
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -73,7 +74,13 @@ def rmsnorm(p, x, eps):
 # ---------------------------------------------------------------------------
 
 def rope(x, positions, theta):
-    """Apply rotary embeddings.  x: (..., S, H, D); positions: (..., S)."""
+    """Apply rotary embeddings.  x: (..., S, H, D); positions: (..., S).
+    A DTensor ``x`` is rotated on its local rows (the angles are a plain
+    tensor, which DTensor does not mix with a sharded one)."""
+    return on_local_shards(lambda x: _rope(x, positions, theta), x)
+
+
+def _rope(x, positions, theta):
     half = x.shape[-1] // 2
     freqs = torch.exp(-math.log(theta) * (
         torch.arange(half, dtype=torch.float32, device=x.device) / half))

@@ -55,6 +55,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as RW
 from repro_torch.models import ssm as SSM
+from repro_torch.parallel.sharding import (constrain, on_local_shards,
+                                          with_whole_params)
 
 ZERO_AUX = {"moe_lb_loss": 0.0, "moe_z_loss": 0.0}
 KINDS = ("attn", "mla", "mamba2", "rwkv6", "xattn", "dec", "shared_attn")
@@ -362,11 +364,12 @@ def _cross_attn(pa, h, cfg, enc, cache):
 # ---------------------------------------------------------------------------
 
 def _embed(params, tokens, cfg):
-    x = params.embed[tokens.long()].to(L.dtype_of(cfg.compute_dtype))
+    x = on_local_shards(lambda t, e: e[t.long()], tokens, params.embed)
+    x = x.to(L.dtype_of(cfg.compute_dtype))
     if cfg.embed_scale:
         x = x * torch.sqrt(torch.tensor(cfg.d_model, dtype=x.dtype,
                                         device=x.device))
-    return x
+    return constrain(x, "batch", None, None)
 
 
 def _encode(params, cfg, enc_embed):
@@ -401,6 +404,7 @@ def _logits(params, x, cfg):
         logits = x.to(cdt) @ params.lm_head.to(cdt)
     if cfg.final_softcap:
         logits = L.softcap(logits, cfg.final_softcap)
+    logits = constrain(logits, "batch", None, "vocab")
     if logits.shape[-1] != cfg.vocab_size:  # drop the padded vocab rows
         logits = logits[..., :cfg.vocab_size]
     return logits
@@ -438,7 +442,10 @@ def forward_train(params, tokens, cfg: ModelConfig, extra=None):
     """Teacher-forced forward over full sequences -> logits, aux.  ``extra``
     holds ``enc_embed`` / ``img_embed`` where the model reads them.  The
     layers after the prologue run under ``cfg.remat`` one at a time (the
-    reference checkpoints its scan body, one superblock of them)."""
+    reference checkpoints its scan body, one superblock of them), and the
+    hidden state is constrained to the batch split after each superblock,
+    as the reference's scan body is.  Under a mesh each layer gathers its
+    own split weights inside its remat region (``with_whole_params``)."""
     x = _embed(params, tokens, cfg)
     x0 = x
     enc = _prep_enc(params, cfg, extra or {})
@@ -446,14 +453,28 @@ def forward_train(params, tokens, cfg: ModelConfig, extra=None):
     positions = torch.arange(tokens.shape[1], device=x.device)
     aux_tot = dict(ZERO_AUX)
     for i, (p, spec) in enumerate(zip(params.layers, cfg.plan)):
-        def layer(x, p=p, spec=spec):
+        def run(p, x, spec=spec):
             y, _, aux = apply_layer(p, spec, cfg, x, positions=positions,
                                     x0=x0, enc=enc, shared_params=shared)
             return y, aux
-        x, aux = (layer(x) if i < len(cfg.prologue)
-                  else _remat(cfg, layer, x))
+
+        def layer(x, p=p, run=run):
+            return with_whole_params(p, run, x)
+        n_pro = len(cfg.prologue)
+        if i < n_pro:
+            x, aux = layer(x)
+        else:
+            x, aux = _remat(cfg, layer, x)
+            if (i - n_pro + 1) % len(cfg.superblock) == 0:
+                x = constrain(x, "batch", None, None)
         aux_tot = {k: aux_tot[k] + aux[k] for k in aux_tot}
     return _logits(params, x, cfg), aux_tot
+
+
+def _token_log_likelihood(logits, labels):
+    lse = torch.logsumexp(logits.float(), dim=-1)  # (B,S)
+    picked = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0].float()
+    return picked - lse
 
 
 def loss_fn(params, batch, cfg: ModelConfig):
@@ -467,9 +488,9 @@ def loss_fn(params, batch, cfg: ModelConfig):
                                 extra={k: v for k, v in batch.items()
                                        if k not in ("tokens", "labels")})
     labels = batch["labels"].long()
-    lse = torch.logsumexp(logits.float(), dim=-1)  # (B,S)
-    picked = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0].float()
-    ll = picked - lse
+    # a vocab-split DTensor is gathered to whole rows first (DTensor's own
+    # vocab-parallel gather leaves a masked partial its reductions mishandle)
+    ll = on_local_shards(_token_log_likelihood, logits, labels)
     mask = (labels >= 0).float()
     loss = -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
     loss = loss + 1e-2 * aux["moe_lb_loss"] + 1e-3 * aux["moe_z_loss"]

@@ -15,6 +15,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import dense_init, dtype_of, init_rmsnorm, rmsnorm
+from repro_torch.parallel.sharding import on_local_shards
 
 
 def _dims(cfg: ModelConfig):
@@ -79,8 +80,13 @@ def mamba2_block(p, x, cfg: ModelConfig, *, cache=None):
     conv_state = cache["conv"] if cache is not None else None
     # the conv + silu chain and the gate into the norm run in float32 and
     # round once, as the reference's fused elementwise code does under XLA
-    conv_out, new_conv = _causal_conv(conv_in.float(), p.conv_w.to(cdt).float(),
-                                      conv_state)
+    w = p.conv_w.to(cdt).float()
+    if conv_state is None:  # training: on each rank's rows under a mesh
+        conv_out = on_local_shards(lambda x, w: _causal_conv(x, w)[0],
+                                   conv_in.float(), w)
+        new_conv = None
+    else:
+        conv_out, new_conv = _causal_conv(conv_in.float(), w, conv_state)
     conv_out = F.silu(conv_out).to(cdt)
     xi, Bc, Cc = torch.split(conv_out, [d_inner, N, N], dim=-1)
     dtv = F.softplus(dt.float() + p.dt_bias.float())

@@ -8,6 +8,13 @@ Per-step wall times are journaled (host clock around a step that ends in
 reading the loss, which waits for the device); steps slower than
 ``straggler_factor`` x the running median are counted.  The step runs
 eagerly on ``device`` (the card unless the CPU is asked for).
+
+With a ``mesh`` (a DeviceMesh over which every rank runs this loop) the
+step runs under the sharding ``rules``: the parameters and the optimizer
+state are DTensors placed by ``param_spec_tree`` and ``opt_shardings``,
+initialized on the host or restored straight onto the mesh (``restore(..., shardings=)``, the elastic-rescale path: the
+checkpoint may come from any topology), and checkpoints are gathered and
+written by rank 0.
 """
 from __future__ import annotations
 
@@ -20,9 +27,12 @@ import torch
 
 from repro_torch.ckpt.checkpoint import CheckpointManager
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel.sharding import param_spec_tree
 from repro_torch.train.optimizer import make_optimizer
 from repro_torch.train.trainstep import (TrainState, init_state,
-                                         make_train_step, named_params)
+                                         make_train_step, named_params,
+                                         opt_shardings, place_params,
+                                         shard_state)
 
 
 def state_tree(state: TrainState):
@@ -32,16 +42,19 @@ def state_tree(state: TrainState):
 
 class Trainer:
     def __init__(self, cfg: ModelConfig, workdir: str, data: Iterator,
-                 lr: float = 3e-4, ckpt_every: int = 20, keep: int = 3,
+                 mesh=None, rules=None, lr: float = 3e-4,
+                 ckpt_every: int = 20, keep: int = 3,
                  straggler_factor: float = 3.0, seed: int = 0,
                  device="cuda"):
         self.cfg = cfg
         self.workdir = workdir
         os.makedirs(workdir, exist_ok=True)
         self.data = data
-        self.device = torch.device(device)
+        self.mesh, self.rules = mesh, rules
+        self.device = torch.device(device if mesh is None
+                                   else mesh.device_type)
         self.optimizer = make_optimizer(cfg.optimizer, lr=lr)
-        self.step_fn = make_train_step(cfg, self.optimizer)
+        self.step_fn = make_train_step(cfg, self.optimizer, mesh, rules)
         self.ckpt = CheckpointManager(os.path.join(workdir, "ckpt"), keep=keep)
         self.ckpt_every = ckpt_every
         self.straggler_factor = straggler_factor
@@ -56,11 +69,16 @@ class Trainer:
         state = init_state(gen, self.cfg, self.optimizer, self.device)
         latest = self.ckpt.latest_step()
         if latest is None:
-            return state
-        params, opt, step = self.ckpt.restore(latest, like=state_tree(state))
-        with torch.no_grad():
-            for name, p in named_params(state.params).items():
-                p.copy_(params[name])
+            return (state if self.mesh is None
+                    else shard_state(state, self.mesh, self.rules))
+        shardings = None
+        if self.mesh is not None:
+            params = named_params(state.params)
+            specs = param_spec_tree(params, self.mesh, self.rules)
+            shardings = (specs, opt_shardings(state.opt, params, specs), None)
+        params, opt, step = self.ckpt.restore(latest, like=state_tree(state),
+                                              shardings=shardings)
+        place_params(state.params, params)
         return TrainState(state.params, opt, step)
 
     def train(self, num_steps: int, state: Optional[TrainState] = None

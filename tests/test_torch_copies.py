@@ -141,11 +141,11 @@ def _functions(text: str):
 
 @pytest.mark.parametrize("where,name", [
     ("launch/serve.py", f) for f in SERVE_FUNCTIONS] + [
-    ("launch/quickstart.py", "spawn_broker_server")])
+    ("launch/quickstart.py", "spawn_broker_server"),
+    ("configs/registry.py", "arch_rules")])
 def test_function_is_a_copy(where, name):
-    ref_file = {"launch/serve.py": SRC / "repro" / "launch" / "serve.py",
-                "launch/quickstart.py": SRC.parent / "examples" /
-                "quickstart.py"}[where]
+    ref_file = {"launch/quickstart.py": SRC.parent / "examples" /
+                "quickstart.py"}.get(where, SRC / "repro" / where)
     want = _apply(_functions(_renamed(ref_file))[name],
                   ALLOWED_FUNCTIONS.get((where, name), ()), f"{where}:{name}")
     assert _functions((SRC / "repro_torch" / where).read_text())[name] == want

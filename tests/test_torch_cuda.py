@@ -312,13 +312,15 @@ def test_graph_executor_matches_cpu_path(cuda_device, sim_name):
     """Two buckets (a ragged 37 -> 64 and a full 256): the card's replays
     give the CPU path's outputs at row-rel 1e-4 (SEIR: 1e-3, its float32
     cancellation in 1 - exp(-force)), NaNs and ``failed`` equal; a second
-    call of a bucket captures nothing new."""
+    call of a bucket captures nothing new.  One card (``mesh=None``): on a
+    host with several, ``test_split_over_every_card_matches_one`` holds
+    the split."""
     from repro_torch.core import ensemble as E
     from repro_torch.sim import jag_simulate, seir_simulate
     sim, d, tol = {"jag": (jag_simulate, 5, 1e-4),
                    "seir": (seir_simulate, 6, 1e-3)}[sim_name]
     rng = np.random.default_rng(3)
-    gpu = E.EnsembleExecutor(sim, device=cuda_device)
+    gpu = E.EnsembleExecutor(sim, device=cuda_device, mesh=None)
     cpu = E.EnsembleExecutor(sim, device="cpu")
     for lo, n in ((5, 37), (100, 256)):
         block = rng.random((n, d)).astype(np.float32)
@@ -337,6 +339,91 @@ def test_graph_executor_matches_cpu_path(cuda_device, sim_name):
         if "failed" in want:
             np.testing.assert_array_equal(got["failed"], want["failed"])
             assert got["failed"][0] == 1.0
+
+
+def _exact_sim(u, draws):
+    """An IEEE-exact simulator (add/mul/div/sqrt and counter-based uniform
+    bits only): one device's result is every device's, bit for bit."""
+    s = u * 2.0 + 0.25
+    return {"v": s / (1.0 + u) + draws["noise"] * 0.001, "w": torch.sqrt(s)}
+
+
+def _exact_draws(seeds, device=None):
+    from repro_torch.sim import rng as R
+    return {"noise": R.uniform(seeds, 0, 5)}
+
+
+_exact_sim.draws_fn = _exact_draws
+
+
+def _eager(sim, batch, lo, dev):
+    x = torch.from_numpy(batch).to(dev)
+    seeds = torch.arange(lo, lo + len(batch), dtype=torch.int64, device=dev)
+    return {k: v.cpu().numpy() for k, v in sim(x, sim.draws_fn(seeds, dev))
+            .items()}
+
+
+def _program_check(dev, current):
+    """A bucket program built and replayed on ``dev`` while ``current`` is
+    the current device: the graph holds the work (no empty-graph warning),
+    and each replay gives the eager result of its own inputs, not the
+    capture's."""
+    import warnings
+    from repro_torch.core import ensemble as E
+    rng = np.random.default_rng(7)
+    with torch.cuda.device(current), warnings.catch_warnings():
+        warnings.simplefilter("error")
+        prog = E._Program(_exact_sim, _exact_draws, 16, 5, dev)
+        for lo in (3, 40):
+            batch = rng.random((16, 5)).astype(np.float32)
+            got = {k: v.cpu().numpy()
+                   for k, v in prog(_exact_sim, batch, lo, 16).items()}
+            want = _eager(_exact_sim, batch, lo, dev)
+            for k in want:
+                np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_graph_program_replays_its_own_inputs(cuda_device):
+    _program_check(torch.device("cuda", 0), 0)
+
+
+def test_graph_program_on_another_card_than_the_current(cuda_device):
+    """A program for the last card, built while card 0 is current (the
+    default capture stream lives on card 0)."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two cards")
+    _program_check(torch.device("cuda", 0), 0)  # card 0 captures first
+    _program_check(torch.device("cuda", n - 1), 0)
+
+
+@pytest.mark.parametrize("sim_name", ["exact", "jag"])
+def test_split_over_every_card_matches_one(cuda_device, sim_name):
+    """``mesh="auto"`` on a host with several cards splits every dividing
+    bucket over all of them: bundles of [32, 32, 16, 5] rows equal one
+    card's bit for bit for the exact simulator, JAG within row-rel 1e-3."""
+    from repro_torch.core import ensemble as E
+    from repro_torch.sim import jag_simulate
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two cards")
+    sim = {"exact": _exact_sim, "jag": jag_simulate}[sim_name]
+    split = E.EnsembleExecutor(sim, device=cuda_device, share_cache=False)
+    one = E.EnsembleExecutor(sim, device=cuda_device, mesh=None,
+                             share_cache=False)
+    assert split.mesh == E.device_mesh() and split.stats["devices"] == n
+    lo = 0
+    for size in (32, 32, 16, 5):
+        blk = np.random.default_rng(size + lo).random((size, 5)) \
+            .astype(np.float32)
+        got, want = (ex.run_bundle(lo, lo + size, blk) for ex in (split, one))
+        for k in want:
+            if sim_name == "exact":
+                np.testing.assert_array_equal(got[k], want[k])
+            else:
+                assert _bundle_rel(got[k], want[k]) <= 1e-3, k
+        lo += size
+    assert split.stats["mesh_launches"] >= 1
 
 
 def test_deferred_writes_under_four_threads_match_blocking(cuda_device,
@@ -621,6 +708,12 @@ BWD_TC_REL = 1e-2
     (1, 130, 130, 2, 1, 16, "float32", True, None, None),
     (1, 33, 70, 4, 1, 64, "float32", False, None, None),
     (2, 100, 100, 4, 2, 64, "float32", True, 16, 30.0),
+    # the encoder archs' training shapes: whisper's 1500-frame encoder (23
+    # full 64-row tiles and 28 rows) and decoder cross-attention, and
+    # llama-vision's GQA 32:8 cross-attention over 1600 image tokens
+    (1, 1500, 1500, 6, 6, 64, "bfloat16", False, None, None),
+    (1, 128, 1500, 6, 6, 64, "bfloat16", False, None, None),
+    (1, 128, 1600, 32, 8, 128, "bfloat16", False, None, None),
 ])
 def test_backward_kernel_vs_plain(cuda_device, B, S, T, H, KV, D, dtype,
                                   causal, window, softcap):
@@ -715,6 +808,27 @@ def test_training_steps_on_the_card_match_the_cpu(cuda_device, tmp_path):
     for k in ("m", "v"):
         for name, a in sg.opt[k].items():
             assert _rel(a.cpu(), sc.opt[k][name]) < 1e-3, (k, name)
+
+
+def test_whisper_train_step_launches_per_layer(cuda_device, tmp_path):
+    """One launch.train step of reduced whisper-tiny on the card: per
+    microbatch, each encoder layer one non-causal flash forward and one
+    backward (the encoder runs outside remat), each decoder layer two
+    attentions (self and cross), each forward twice under remat="full"
+    and backward once."""
+    from repro_torch.launch import train as launch_train
+    cfg = registry.reduced_config("whisper-tiny")
+    assert cfg.remat == "full" and not cfg.prologue
+    summary, tr = launch_train.main(
+        ["--arch", "whisper-tiny", "--reduced", "--steps", "1", "--batch",
+         "2", "--seq", "16", "--workdir", str(tmp_path)])
+    n_mb = max(1, cfg.microbatch)
+    assert summary["flash_launches"] == n_mb * (cfg.n_enc_layers
+                                                + 2 * 2 * cfg.n_layers)
+    assert summary["flash_bwd_launches"] == n_mb * (cfg.n_enc_layers
+                                                    + 2 * cfg.n_layers)
+    assert summary["wkv6_launches"] == summary["ssd_launches"] == 0
+    assert np.isfinite(summary["final_loss"])
 
 
 @pytest.mark.parametrize("remat,fwd_per_layer", [("none", 1), ("full", 2),

@@ -297,10 +297,18 @@ def test_llm_serve_main_on_cpu(capsys, arch):
 
 
 @pytest.mark.parametrize("arch", ARCHS[:2])
-def test_train_launcher_refuses_encoder_archs(tmp_path, arch):
-    with pytest.raises(NotImplementedError, match="Training the encoder archs"):
-        launch_train.main(["--arch", arch, "--device", "cpu", "--reduced",
-                           "--steps", "1", "--workdir", str(tmp_path)])
+def test_train_launcher_resumes_encoder_archs(tmp_path, arch):
+    """Re-running the launcher with the same workdir resumes an encoder
+    arch from its checkpoint: a run to step 3 after one to step 2 takes
+    one step, its batch carrying enc_embed / img_embed like the rest."""
+    args = ["--arch", arch, "--device", "cpu", "--reduced", "--batch", "2",
+            "--seq", "16", "--ckpt-every", "1", "--workdir", str(tmp_path)]
+    summary, _ = launch_train.main(args + ["--steps", "2"])
+    assert summary["steps"] == 2 and summary["ran_steps"] == 2
+    summary, tr = launch_train.main(args + ["--steps", "3"])
+    assert summary["steps"] == 3 and summary["ran_steps"] == 1
+    assert [h["step"] for h in tr.history] == [3]
+    assert np.isfinite(tr.history[0]["loss"])
 
 
 def test_train_launcher_takes_starcoder2(tmp_path):

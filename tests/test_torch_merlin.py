@@ -208,7 +208,7 @@ def test_concurrent_bundles_lose_no_count():
 
 
 def test_executor_refuses_what_it_does_not_do():
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(TypeError, match="tuple of devices"):
         E.EnsembleExecutor(_toy_sim, device=CPU, mesh=object())
     assert E.EnsembleExecutor(_toy_sim, device=CPU).mesh is None
     assert E.EnsembleExecutor(_toy_sim, device=CPU, mesh=None).mesh is None

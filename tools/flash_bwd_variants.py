@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """The bf16 flash backward's design choices, timed in turns on one card at
 the backward's shapes in ``chip_smoke.py`` (jag-surrogate's training
-shapes, zamba2's 512 prefill, GQA, window + softcap, D 128 with GQA).
+shapes, zamba2's 512 prefill, GQA, window + softcap, D 128 with GQA, and
+the encoder archs' training shapes: whisper's encoder and cross-attention,
+llama-vision's cross-attention).
 
     python3 tools/flash_bwd_variants.py [--parent DIR/flash_attention_bwd.cu]
                                         [--rounds 2]
@@ -52,7 +54,7 @@ VARIANTS = {
                           "constexpr int kMinBlocks = 2;")],
 }
 SHAPES = ("jag_train_128", "jag_bundles_8", "zamba2_512", "D128_gqa",
-          "gqa_8_2", "window64_softcap30")
+          "gqa_8_2", "window64_softcap30") + cs.BWD_ENCDEC
 
 
 def variant_sources(parent=None):
