@@ -135,6 +135,25 @@ before each phase and must read 0 after it.
      bundles bit for bit for an exact simulator and JAG's within rel 1e-3,
      with mesh launches; device_mesh() is None on one card.  The group is
      destroyed at the end, whatever the result.
+ 14. dryrun (run right after llama-vision's training, before the Merlin
+     phases' graph pools): a one-rank NCCL group and a (1, 1) host mesh
+     (launch/mesh.make_host_mesh).  The meta-device dry run
+     (launch/dryrun.lower_cell + analyze) of llama-3.2-vision-11b at full
+     width and 5 layers, one train step of 8 x 128, against the card: the
+     placed state and batch hold the predicted argument bytes within the
+     allocator's 512-byte rounding a tensor, the step's peak is no more
+     than argument + saved bytes + the stated margin (the dry run's live
+     peak beyond the saved bytes x 1.10, 5 % of the saved bytes, 256 MiB),
+     and the dry run's LocalCounter counts the same FLOPs on the card's
+     step as on meta, exactly.  Then make_prefill_fn / make_decode_fn
+     under the mesh serve jag-surrogate and whisper-tiny at full width
+     (batch 4, 32-token prompts, 8 tokens; whisper's cross-attention at
+     S = 1 through the flash kernel), their logits bit-equal to
+     ServeEngine(mesh=...).generate's and their flash launches exact; and
+     a `mesh` line: deepseek-v2-lite-16b at full width, its dense prologue
+     layer and one MoE layer, evaluates under the mesh (the D-192 flash
+     forward on the local shards, 2 launches) to the unsharded loss and
+     aux losses within rel 1e-4.
 The last line is {"ok": true, "device": {...}}.  Without a card, or without
 the rest of the repository beside it, the script exits non-zero before it.
 """
@@ -706,8 +725,8 @@ def _routes(record=None, replay=None):
     orig = MOE._route
     pinned = iter(replay) if replay is not None else None
 
-    def route(p, xf, cfg):
-        ids, gates, aux = orig(p, xf, cfg)
+    def route(p, xf, cfg, *rest):
+        ids, gates, aux = orig(p, xf, cfg, *rest)
         if pinned is not None:
             ids = next(pinned)
             probs = torch.softmax((xf @ p.w_router.to(xf.dtype)).float(), -1)
@@ -1916,6 +1935,249 @@ def phase_train_vision(dev):
     return launches
 
 
+# the dry run's check on the card: the caching allocator rounds each
+# block up to 512 bytes; the peak may exceed the saved bytes by what the
+# dry run's live-tensor peak holds beyond them (gradients, the optimizer's
+# new moments) plus 10 % (a CUDA operator's internal scratch, which no
+# dispatch mode sees, and tensors freed only by the garbage collector),
+# 5 % of the saved bytes and 256 MiB
+ALLOC_ROUND = 512
+PEAK_SLACK, PEAK_MARGIN = 1.10, 256 << 20
+# deepseek's (1, 1) mesh eval against the unsharded one: the MoE aux means
+# are sums over the global token count there
+DEEPSEEK_EVAL_REL = 1e-4
+SERVE_FNS = (("jag-surrogate", 32, 8), ("whisper-tiny", 32, 8))
+
+
+def _serve_flash(cfg, new_tokens):
+    """Flash launches of one prefill and ``new_tokens - 1`` decode steps:
+    each encoder layer, self- and cross-attention at prefill; each
+    cross-attention again at every decode step (self-attention decodes
+    through the plain cache attention)."""
+    pre = cfg.n_enc_layers + sum({"dec": 2}.get(spec.kind, 1)
+                                 for spec in cfg.plan
+                                 if spec.kind not in ("rwkv6", "mamba2"))
+    dec = sum(1 for spec in cfg.plan if spec.kind in ("dec", "xattn"))
+    return pre + (new_tokens - 1) * dec
+
+
+def _whole(x):
+    from torch.distributed.tensor import DTensor
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def phase_dryrun(dev):
+    """The meta-device dry run held to the card, and the sharded serving
+    and MoE paths, on a one-rank NCCL group and a (1, 1) host mesh
+    (``launch.mesh.make_host_mesh``): ``_dryrun_memory_flops``,
+    ``_dryrun_serve_fns`` and ``_deepseek_mesh_eval``.  The group is
+    destroyed at the end, whatever the result.  Returns the launch
+    counts."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    launches = {name: 0 for name in KERNELS}
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1)
+        for part in (_dryrun_memory_flops, _dryrun_serve_fns,
+                     _deepseek_mesh_eval):
+            for name, n in part(dev, mesh).items():
+                launches[name] += n
+            _free()
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def _dryrun_memory_flops(dev, mesh):
+    """llama-3.2-vision-11b at full width and VISION_LAYERS layers, one
+    train step of 8 x 128 tokens.  ``dryrun.lower_cell`` + ``analyze`` on
+    meta predict the step's argument bytes, saved bytes, live peak and
+    FLOPs; then the real state is placed on the card (argument bytes
+    within the allocator's rounding of the prediction), one step is run
+    (its peak no more than argument_bytes + temp_bytes + the margin above)
+    and a second one under the dry run's ``LocalCounter`` (its FLOPs equal
+    the meta count).  Returns the launch counts."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import flops as kflops
+    from repro_torch.launch import dryrun
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.trainstep import (init_state, make_train_step,
+                                             shard_state)
+    full = registry.get_config("llama-3.2-vision-11b")
+    cfg = full.replace(n_repeat=1, n_layers=len(full.superblock))
+    shape = ShapeConfig("chip_smoke_train", "train", 128, 8)
+    t0 = time.monotonic()
+    cell = dryrun.lower_cell(cfg.arch_id, shape, mesh, cfg=cfg)
+    pred = dryrun.analyze(cell)
+    dry_s = time.monotonic() - t0
+    del cell
+    _free()
+    opt = make_optimizer(cfg.optimizer, lr=3e-4)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    state = shard_state(init_state(torch.Generator(device=dev)
+                                   .manual_seed(0), cfg, opt), mesh)
+    batch = registry.input_specs(cfg, shape, abstract=False,
+                                 gen=torch.Generator().manual_seed(1),
+                                 device=dev)
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    n_tensors = (len(list(state.params.parameters())) + len(batch) + 1
+                 + sum(1 for _ in _leaves(state.opt)))
+    mem = pred["memory"]
+    args = mem["argument_bytes"]
+    args_ok = 0 <= held - args <= ALLOC_ROUND * n_tensors
+    step = make_train_step(cfg, opt, mesh)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    state, m1 = step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    margin = (max(0, mem["peak_live_bytes"] - mem["temp_bytes"]) * PEAK_SLACK
+              + 0.05 * mem["temp_bytes"] + PEAK_MARGIN)
+    bound = args + mem["temp_bytes"] + margin
+    counter = dryrun.LocalCounter()
+    with kflops.counting(counter), counter:
+        state, m2 = step(state, batch)
+    torch.cuda.synchronize()
+    got = _launches()
+    want = _encdec_launches(cfg, 2)
+    flops_equal = counter.flops == pred["flops"]
+    losses = [float(m1["loss"]), float(m2["loss"])]
+    ok = (args_ok and peak <= bound and flops_equal and got == want
+          and all(np.isfinite(losses)))
+    say("dryrun", check="memory_flops", arch=cfg.arch_id, layers=cfg.n_layers,
+        batch=8, seq=128, mesh_shape=[1, 1], dry_run_s=dry_s, predicted=mem,
+        measured_argument_bytes=held, argument_rel=(held - args) / args,
+        tensors=n_tensors, alloc_round_bar=ALLOC_ROUND * n_tensors,
+        measured_peak_bytes=peak, peak_bound_bytes=bound, margin_bytes=margin,
+        predicted_flops=pred["flops"], measured_flops=counter.flops,
+        kernel_flops=pred["kernel_flops"],
+        measured_kernel_flops=counter.kernel_flops, flops_equal=flops_equal,
+        collectives=pred["collectives"], losses=losses, kernel_launches=got,
+        expected_launches=want, ok=ok, **_card())
+    if not ok:
+        raise RuntimeError(f"dry run against the card: arguments {held} vs "
+                           f"{args}, peak {peak} vs bound {bound}, flops "
+                           f"{counter.flops} vs {pred['flops']}, launches "
+                           f"{got} vs {want}")
+    return got
+
+
+def _dryrun_serve_fns(dev, mesh):
+    """``make_prefill_fn`` / ``make_decode_fn`` under the mesh serve
+    jag-surrogate and whisper-tiny at full width (whisper's
+    cross-attention at S = 1 through the flash kernel): their logits
+    bit-equal to ``ServeEngine(mesh=...).generate``'s, their flash
+    launches exact.  Returns the launch counts."""
+    from repro_torch.parallel.sharding import shard_module
+    from repro_torch.serve.engine import make_decode_fn, make_prefill_fn
+    launches = {name: 0 for name in KERNELS}
+    for arch, prompt, new in SERVE_FNS:
+        cfg = registry.get_config(arch)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = shard_module(lm.init_params(cfg, gen, dev), mesh)
+        toks = torch.randint(0, cfg.vocab_size, (4, prompt), generator=gen,
+                             device=dev)
+        extra = _extras(cfg, 4, gen, dev)
+        max_len = prompt + new
+        seen = []
+
+        def keep(fn):
+            def run(*a):
+                out = fn(*a)
+                seen.append(_whole(out[0]))
+                return out
+            return run
+        with torch.inference_mode():
+            prefill = make_prefill_fn(cfg, max_len, mesh)
+            decode = make_decode_fn(cfg, mesh)
+            _zero_launches()
+            logits, caches = prefill(params, toks, *extra.values())
+            fn_logits = [_whole(logits)[:, -1]]
+            for _ in range(new - 1):
+                tok = torch.argmax(fn_logits[-1], -1)[:, None]
+                logits, caches = decode(params, tok, caches)
+                fn_logits.append(_whole(logits))
+            torch.cuda.synchronize()
+            fn_counts = _launches()
+            eng = ServeEngine(cfg, params, max_len=max_len, mesh=mesh)
+            eng.prefill_fn = keep(eng.prefill_fn)
+            eng.decode_fn = keep(eng.decode_fn)
+            _zero_launches()
+            out = eng.generate(toks, new, extra)
+            torch.cuda.synchronize()
+            eng_counts = _launches()
+        for name in KERNELS:
+            launches[name] += fn_counts[name] + eng_counts[name]
+        seen[0] = seen[0][:, -1]
+        equal = len(seen) == len(fn_logits) and all(
+            torch.equal(a, b) for a, b in zip(fn_logits, seen))
+        want = {"flash_attention": _serve_flash(cfg, new),
+                "flash_attention_bwd": 0, "wkv6_scan": 0, "ssd_scan": 0}
+        ok = (equal and fn_counts == want and eng_counts == want
+              and tuple(out.shape) == (4, new)
+              and all(bool(torch.isfinite(x).all()) for x in seen))
+        say("dryrun", check="serve_fns", arch=arch, mesh_shape=[1, 1],
+            batch=4, prompt=prompt, new_tokens=new, bit_equal=equal,
+            fn_launches=fn_counts, engine_launches=eng_counts,
+            expected_launches=want, ok=ok)
+        if not ok:
+            raise RuntimeError(f"{arch}: serve fns under the mesh: equal "
+                               f"{equal}, launches {fn_counts} / "
+                               f"{eng_counts}, expected {want}")
+        del params, caches, eng
+        _free()
+    return launches
+
+
+def _deepseek_mesh_eval(dev, mesh):
+    """deepseek-v2-lite-16b at full width, cut to its dense prologue layer
+    and one MoE layer: ``make_eval_step`` under the mesh (the D-192 flash
+    forward on the local shards, the MoE router on the local rows) against
+    the unsharded eval, launches exact.  Returns the launch counts."""
+    from repro_torch.parallel.sharding import shard_module
+    from repro_torch.train.trainstep import make_eval_step
+    full = registry.get_config("deepseek-v2-lite-16b")
+    cfg = full.replace(n_repeat=1,
+                       n_layers=len(full.prologue) + len(full.superblock))
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    batch = SyntheticTokens(8, 128, cfg.vocab_size).batch_at(0)
+    plain = make_eval_step(cfg)(params, batch)
+    shard_module(params, mesh)
+    _zero_launches()
+    got = make_eval_step(cfg, mesh)(params, batch)
+    torch.cuda.synchronize()
+    counts = _launches()
+    rel = {k: abs(float(got[k]) - float(plain[k])) / abs(float(plain[k]))
+           for k in ("loss", "moe_lb_loss", "moe_z_loss")}
+    want = {"flash_attention": cfg.n_layers, "flash_attention_bwd": 0,
+            "wkv6_scan": 0, "ssd_scan": 0}
+    ok = counts == want and max(rel.values()) <= DEEPSEEK_EVAL_REL
+    say("mesh", check="deepseek_eval", arch=cfg.arch_id,
+        layers=[s.kind + "/" + s.mlp for s in cfg.plan], mesh_shape=[1, 1],
+        batch=8, seq=128, loss={k: float(v) for k, v in got.items()},
+        unsharded_loss={k: float(v) for k, v in plain.items()}, rel=rel,
+        rel_tol=DEEPSEEK_EVAL_REL, kernel_launches=counts,
+        expected_launches=want, ok=ok)
+    if not ok:
+        raise RuntimeError(f"deepseek mesh eval: rel {rel}, launches "
+                           f"{counts}, expected {want}")
+    return counts
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 MESH_LOSS_REL = 1e-5          # the (1, 1) mesh step against the plain one
 MESH_JAG_REL = 1e-3           # JAG's split bundles against one program
 
@@ -2082,9 +2344,15 @@ def main() -> int:
               file=sys.stderr)
         return 2
     dev = env.device("cuda")
+    t_start = time.monotonic()
+    walls = {}  # phase -> seconds since the previous mark
+
+    def mark(name):
+        walls[name] = time.monotonic() - t_start - sum(walls.values())
     snap = phase_env()
     phase_build()
     phase_sass()
+    mark("env_build_sass")
     errs, timing = {}, {}
     errs["flash_attention"], t = phase_flash(dev)
     timing["flash_attention"] = t["jag_prefill_512"]
@@ -2104,26 +2372,37 @@ def main() -> int:
         timing[name] = t[main_[0]]
         main_shapes[name] = main_
     _free()
+    mark("kernels")
     launches = {name: 0 for name in KERNELS}
     for arch in SERVE:  # each model's counts are read around its own run
         for name, n in phase_serve(dev, arch).items():
             launches[name] += n
+    mark("serve")
     for name, n in phase_train_vision(dev).items():
         launches[name] += n
+    mark("train_vision")
+    for name, n in phase_dryrun(dev).items():
+        launches[name] += n
+    mark("dryrun")
     phase_merlin(dev)
     data = phase_merlin_net(dev)
     phase_gateway(dev, data)
     phase_cascade(dev)
     phase_icf(dev)
     phase_optimization_loop(dev)
+    mark("merlin_workflows")
     with tempfile.TemporaryDirectory() as keep:
         ckpt = os.path.join(keep, "jag_ckpt")
         for name, n in phase_train(data, ckpt).items():
             launches[name] += n
+        mark("train")
         for name, n in phase_train_encdec(dev, data).items():
             launches[name] += n
+        mark("train_encdec")
         for name, n in phase_mesh(dev, ckpt).items():
             launches[name] += n
+        mark("mesh")
+    say("timing", seconds=time.monotonic() - t_start, phases=walls)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{name}.cu",

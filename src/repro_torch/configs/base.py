@@ -141,3 +141,12 @@ SHAPES = {
     "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
     "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
 }
+
+# archs with a sub-quadratic long-context path
+SUBQUADRATIC = {"zamba2-1.2b", "rwkv6-3b"}
+
+
+def shape_applicable(arch_id: str, shape: str, family: str) -> bool:
+    if shape == "long_500k":
+        return arch_id in SUBQUADRATIC
+    return True

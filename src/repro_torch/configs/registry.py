@@ -1,14 +1,17 @@
 """Architecture registry of the port: ``--arch <id>`` resolution, reduced
-configs for CPU tests and per-arch sharding-rule overrides
-(``parallel/sharding.py``).  ``ARCHS`` holds the reference's eleven
-architectures."""
+configs for CPU tests, per-arch sharding-rule overrides
+(``parallel/sharding.py``) and input specs for every workload shape.
+``ARCHS`` holds the reference's eleven architectures."""
 from __future__ import annotations
 
 import importlib
 import math
 from typing import Any, Dict, Optional
 
-from repro_torch.configs.base import ModelConfig
+import torch
+
+from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig,
+                                     shape_applicable)
 
 ARCHS = {
     "arctic-480b": "repro_torch.configs.arctic_480b",
@@ -70,3 +73,62 @@ def reduced_config(arch_id: str) -> ModelConfig:
     r = cfg.replace(**over)
     r.validate()
     return r
+
+
+# ---------------------------------------------------------------------------
+# input specs
+# ---------------------------------------------------------------------------
+
+def _extras(cfg: ModelConfig, B: int):
+    ex = {}
+    if cfg.n_enc_layers:
+        ex["enc_embed"] = ((B, cfg.enc_len, cfg.d_model), torch.bfloat16)
+    if cfg.n_img_tokens:
+        ex["img_embed"] = ((B, cfg.n_img_tokens, cfg.d_vision), torch.bfloat16)
+    return ex
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, abstract: bool = True,
+                gen: Optional[torch.Generator] = None, device="cpu"):
+    """Model inputs for a workload shape.
+
+    ``abstract=True`` -> tensors on the meta device (the dry run's
+    stand-ins, no allocation); ``abstract=False`` -> concrete random
+    tensors from ``gen`` (a seeded CPU generator by default) on
+    ``device``: integer tokens uniform over the vocabulary, extras
+    normal x 0.02 in bf16.
+
+    train/prefill: {"tokens", ("labels")} (+ stub-frontend embeddings).
+    decode: {"token": (B,1)}; the caches are a separate argument built by
+    ``models.lm.init_caches`` (see launch/dryrun.py).
+    """
+    B, S = shape.global_batch, shape.seq_len
+    specs: Dict[str, Any] = {}
+    if shape.kind == "train":
+        specs["tokens"] = ((B, S), torch.int32)
+        specs["labels"] = ((B, S), torch.int32)
+    elif shape.kind == "prefill":
+        specs["tokens"] = ((B, S), torch.int32)
+    else:  # decode
+        specs["token"] = ((B, 1), torch.int32)
+    if shape.kind != "decode":
+        specs.update(_extras(cfg, B))
+
+    if abstract:
+        return {k: torch.empty(s, dtype=d, device="meta")
+                for k, (s, d) in specs.items()}
+    gen = gen if gen is not None else torch.Generator().manual_seed(0)
+    out = {}
+    for k, (s, d) in specs.items():
+        if d == torch.int32:
+            t = torch.randint(0, cfg.vocab_size, s, generator=gen, dtype=d)
+        else:
+            t = (torch.randn(s, generator=gen) * 0.02).to(d)
+        out[k] = t.to(device)
+    return out
+
+
+def applicable_shapes(arch_id: str):
+    cfg = get_config(arch_id)
+    return [s for s in SHAPES.values()
+            if shape_applicable(arch_id, s.name, cfg.family)]

@@ -42,6 +42,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.flops import count, flash_flops
 
 HEAD_DIMS = (16, 32, 64, 128, 192)
 BWD_HEAD_DIMS = (16, 32, 64, 128)
@@ -191,6 +192,8 @@ class FlashAttentionFn(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
+        count("flash_attention_bwd", flash_flops, q, k, v, ctx.opts[2],
+              ctx.opts[3], 0, True)
         # autograd may hand over a strided gradient (a transpose, an expand)
         dq, dk, dv = _backward(q, k, v, out, lse, dout.contiguous(),
                                *ctx.opts)

@@ -37,6 +37,11 @@ shifts, conv tail, recurrent state) are replaced by new tensors each step,
 as in the reference.  Cross-attention K/V are computed from ``enc`` at
 prefill, which attends over them in the compute dtype; decode reads them
 back from the cache, cast to the compute dtype.
+
+Under a mesh (``sharding.activation_rules``) the caches are DTensors
+placed by ``sharding.cache_spec``, each layer gathers its weights over the
+fsdp dims around its call (``with_gathered_params``) and keeps their
+split over ``model``, and the embedding is looked up vocab-parallel.
 """
 from __future__ import annotations
 
@@ -46,6 +51,7 @@ from typing import Any, Dict, List
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -55,8 +61,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as RW
 from repro_torch.models import ssm as SSM
-from repro_torch.parallel.sharding import (constrain, on_local_shards,
-                                          with_whole_params)
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.sharding import (constrain, linear, on_local_shards,
+                                          run_local, with_gathered_params)
 
 ZERO_AUX = {"moe_lb_loss": 0.0, "moe_z_loss": 0.0}
 KINDS = ("attn", "mla", "mamba2", "rwkv6", "xattn", "dec", "shared_attn")
@@ -292,6 +299,12 @@ def _self_attn(pa, h, cfg, spec, positions, cache, cache_pos):
     return _attn_prefill(pa, h, cfg, spec, positions, cache)
 
 
+def _roll1(x, s):
+    """``torch.roll(x, s, dims=1)`` as slices (a DTensor takes them)."""
+    s %= x.shape[1]
+    return torch.cat([x[:, x.shape[1] - s:], x[:, :x.shape[1] - s]], 1)
+
+
 def _attn_prefill(pa, h, cfg, spec, positions, cache):
     """Run full-sequence attention, then lay the (possibly rolled) tail of
     the roped K/V into the cache buffers (slot = position % Lbuf)."""
@@ -299,34 +312,24 @@ def _attn_prefill(pa, h, cfg, spec, positions, cache):
     S, Lbuf = h.shape[1], cache["k"].shape[1]
     ck, cv = cache["k"], cache["v"]
     if S <= Lbuf:
-        ck[:, :S] = k
-        cv[:, :S] = v
+        L.write_at(ck, 0, k)
+        L.write_at(cv, 0, v)
     else:  # windowed cache smaller than prefill: token s -> slot s % Lbuf
-        ck.copy_(torch.roll(k[:, -Lbuf:], S % Lbuf, dims=1))
-        cv.copy_(torch.roll(v[:, -Lbuf:], S % Lbuf, dims=1))
+        L.write_at(ck, 0, _roll1(k[:, -Lbuf:], S % Lbuf))
+        L.write_at(cv, 0, _roll1(v[:, -Lbuf:], S % Lbuf))
     return y, {"k": ck, "v": cv}
 
 
 def _attn_decode_rolling(pa, h, cfg, spec, positions, cache, write_pos, kv_len):
-    B = h.shape[0]
-    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cdt = L.dtype_of(cfg.compute_dtype)
-    hc = h.to(cdt)
-    q = (hc @ pa.wq.to(cdt)).reshape(B, 1, H, Dh)
-    k = (hc @ pa.wk.to(cdt)).reshape(B, 1, KV, Dh)
-    v = (hc @ pa.wv.to(cdt)).reshape(B, 1, KV, Dh)
-    if cfg.qk_norm:
-        q = L.rmsnorm(pa.qnorm, q, cfg.norm_eps)
-        k = L.rmsnorm(pa.knorm, k, cfg.norm_eps)
-    q = L.rope(q, positions, cfg.rope_theta)
-    k = L.rope(k, positions, cfg.rope_theta)
+    q, k, v = L.qkv(pa, h.to(cdt), cfg, positions)
     ck, cv = cache["k"], cache["v"]
-    ck[:, write_pos] = k[:, 0]
-    cv[:, write_pos] = v[:, 0]
+    L.write_at(ck, write_pos, k)
+    L.write_at(cv, write_pos, v)
     out = kops.decode_attention(q, ck, cv, kv_len=kv_len,
                                 scale=L.attention_scale(cfg),
                                 softcap_val=cfg.attn_softcap, window=None)
-    o = out.reshape(B, 1, H * Dh) @ pa.wo.to(cdt)
+    o = linear(shd.flatten_heads(out), pa.wo.to(cdt))
     return o.to(h.dtype), {"k": ck, "v": cv}
 
 
@@ -337,26 +340,32 @@ def _cross_attn(pa, h, cfg, enc, cache):
     cache, cast to its dtype) or, at decode (``enc`` None), from the cache
     cast back to the compute dtype."""
     cdt = L.dtype_of(cfg.compute_dtype)
-    B, S, _ = h.shape
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if cache is not None and enc is None:
         xk, xv = cache["xk"].to(cdt), cache["xv"].to(cdt)
     else:
         src = enc.to(cdt)
-        T = src.shape[1]
-        xk = (src @ pa.wk.to(cdt)).reshape(B, T, KV, Dh)
-        xv = (src @ pa.wv.to(cdt)).reshape(B, T, KV, Dh)
-    q = (h.to(cdt) @ pa.wq.to(cdt)).reshape(B, S, H, Dh)
-    out = kops.flash_attention(q, xk, xv, causal=False,
-                               scale=1.0 / math.sqrt(Dh),
-                               use_pallas=cfg.use_pallas)
-    o = (out.reshape(B, S, H * Dh) @ pa.wo.to(cdt)).to(h.dtype)
+        xk = shd.unflatten_heads(linear(src, pa.wk.to(cdt)), KV)
+        xv = shd.unflatten_heads(linear(src, pa.wv.to(cdt)), KV)
+    q = shd.unflatten_heads(linear(h.to(cdt), pa.wq.to(cdt)), H)
+    if _split_seq(xk):  # a cache split along its positions (S = 1)
+        out = kops.decode_attention(q, xk, xv, kv_len=xk.shape[1],
+                                    scale=1.0 / math.sqrt(Dh))
+    else:
+        out = kops.flash_attention(q, xk, xv, causal=False,
+                                   scale=1.0 / math.sqrt(Dh),
+                                   use_pallas=cfg.use_pallas)
+    o = linear(shd.flatten_heads(out), pa.wo.to(cdt)).to(h.dtype)
     if cache is None:
         return o, None
     if enc is not None:
-        cache["xk"].copy_(xk)
-        cache["xv"].copy_(xv)
+        L.write_at(cache["xk"], 0, xk)
+        L.write_at(cache["xv"], 0, xv)
     return o, {"xk": cache["xk"], "xv": cache["xv"]}
+
+
+def _split_seq(t) -> bool:
+    return isinstance(t, DTensor) and Shard(1) in t.placements
 
 
 # ---------------------------------------------------------------------------
@@ -364,12 +373,32 @@ def _cross_attn(pa, h, cfg, enc, cache):
 # ---------------------------------------------------------------------------
 
 def _embed(params, tokens, cfg):
-    x = on_local_shards(lambda t, e: e[t.long()], tokens, params.embed)
+    x = shd.rows(_lookup(tokens, params.embed))
     x = x.to(L.dtype_of(cfg.compute_dtype))
     if cfg.embed_scale:
         x = x * torch.sqrt(torch.tensor(cfg.d_model, dtype=x.dtype,
                                         device=x.device))
     return constrain(x, "batch", None, None)
+
+
+def _lookup(tokens, embed):
+    """``embed[tokens]``.  Under a mesh, vocab-parallel: each rank looks
+    up the tokens in the rows of ``embed`` it holds (zeros for the
+    others), and the rows' partial sums are reduced where the next op
+    reads them; the embedding is never gathered over ``model``."""
+    if not isinstance(embed, DTensor):
+        return embed[tokens.long()]
+    tokens = tokens.redistribute(tokens.device_mesh,
+                                 shd.batch_placements(tokens))
+    v0, n = shd.local_offset(embed, 0)
+
+    def look(t, e):
+        t = t.long() - v0
+        hit = (t >= 0) & (t < n)
+        return e[t.clamp(0, n - 1)] * hit[..., None].to(e.dtype)
+    out = [Partial() if p == Shard(0) and isinstance(pt, Replicate)
+           else pt for p, pt in zip(embed.placements, tokens.placements)]
+    return run_local(look, tokens, embed, out=out)
 
 
 def _encode(params, cfg, enc_embed):
@@ -391,7 +420,8 @@ def _prep_enc(params, cfg, extra):
     if cfg.n_enc_layers:
         return _encode(params, cfg, extra["enc_embed"])
     if cfg.n_img_tokens:
-        return extra["img_embed"].to(cdt) @ params.w_img.to(cdt)
+        return shd.rows(linear(extra["img_embed"].to(cdt),
+                               params.w_img.to(cdt)))
     return None
 
 
@@ -399,9 +429,9 @@ def _logits(params, x, cfg):
     x = L.rmsnorm(params.final_norm, x, cfg.norm_eps)
     cdt = L.dtype_of(cfg.compute_dtype)
     if cfg.tie_embeddings:
-        logits = x.to(cdt) @ params.embed.to(cdt).T
+        logits = linear(x.to(cdt), params.embed.to(cdt).T)
     else:
-        logits = x.to(cdt) @ params.lm_head.to(cdt)
+        logits = linear(x.to(cdt), params.lm_head.to(cdt))
     if cfg.final_softcap:
         logits = L.softcap(logits, cfg.final_softcap)
     logits = constrain(logits, "batch", None, "vocab")
@@ -445,7 +475,8 @@ def forward_train(params, tokens, cfg: ModelConfig, extra=None):
     reference checkpoints its scan body, one superblock of them), and the
     hidden state is constrained to the batch split after each superblock,
     as the reference's scan body is.  Under a mesh each layer gathers its
-    own split weights inside its remat region (``with_whole_params``)."""
+    own weights over the fsdp dims inside its remat region
+    (``with_gathered_params``); their splits over ``model`` stay."""
     x = _embed(params, tokens, cfg)
     x0 = x
     enc = _prep_enc(params, cfg, extra or {})
@@ -459,7 +490,7 @@ def forward_train(params, tokens, cfg: ModelConfig, extra=None):
             return y, aux
 
         def layer(x, p=p, run=run):
-            return with_whole_params(p, run, x)
+            return with_gathered_params(p, run, x)
         n_pro = len(cfg.prologue)
         if i < n_pro:
             x, aux = layer(x)
@@ -469,6 +500,14 @@ def forward_train(params, tokens, cfg: ModelConfig, extra=None):
                 x = constrain(x, "batch", None, None)
         aux_tot = {k: aux_tot[k] + aux[k] for k in aux_tot}
     return _logits(params, x, cfg), aux_tot
+
+
+def gathered_top(params) -> Dict[str, torch.Tensor]:
+    """{name: the parameter in compute placements
+    (``sharding.gathered``)} for the model's parameters outside its
+    layers (each layer gathers its own, ``with_gathered_params``)."""
+    return {k: shd.gathered(p) for k, p in params.named_parameters()
+            if not k.startswith("layers.")}
 
 
 def _token_log_likelihood(logits, labels):
@@ -539,9 +578,20 @@ def _init_cross_cache(cfg: ModelConfig, batch, T, dtype, device):
 
 def init_caches(cfg: ModelConfig, batch, max_len, dtype=torch.bfloat16,
                 device="cuda") -> Dict[str, Any]:
+    """Zeroed caches; under a mesh (``activation_rules``) each leaf a
+    DTensor placed by ``sharding.cache_spec`` (each rank allocates its own
+    block only)."""
+    ctx = shd.current()
+    if ctx is None:
+        make = init_layer_cache
+    else:
+        def make(cfg, spec, batch, max_len, dtype, device):
+            meta = init_layer_cache(cfg, spec, batch, max_len, dtype, "meta")
+            return {k: shd.zeros_placed(t.shape, t.dtype, device, shd.cache_spec(
+                k, t.shape, ctx.mesh, ctx.rules), ctx.mesh)
+                for k, t in meta.items()}
     layers: List[Dict[str, torch.Tensor]] = [
-        init_layer_cache(cfg, spec, batch, max_len, dtype, device)
-        for spec in cfg.plan]
+        make(cfg, spec, batch, max_len, dtype, device) for spec in cfg.plan]
     return {"layers": layers, "pos": 0}
 
 
@@ -558,10 +608,14 @@ def forward_cached(params, tokens, caches, cfg: ModelConfig, extra=None):
     positions = pos0 + torch.arange(S, device=x.device)
     new_layers = []
     for p, spec, c in zip(params.layers, cfg.plan, caches["layers"]):
-        x, nc, _ = apply_layer(p, spec, cfg, x, positions=positions, x0=x0,
+        def run(p, x, spec=spec, c=c):
+            return apply_layer(p, spec, cfg, x, positions=positions, x0=x0,
                                enc=enc, cache=c, cache_pos=pos0,
                                shared_params=shared)
-        new_layers.append(nc)
+        x, nc, _ = with_gathered_params(p, run, x)
+        # a replaced entry (RWKV, Mamba2) keeps its cache's placements
+        new_layers.append({k: shd.placed_like(v, c[k]) for k, v in nc.items()}
+                          if nc is not None else nc)
     logits = _logits(params, x[:, -1:] if S > 1 else x, cfg)
     return logits, {"layers": new_layers, "pos": pos0 + S}
 

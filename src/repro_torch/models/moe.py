@@ -18,19 +18,27 @@ Two differences from JAX are handled: ``F.one_hot`` raises on an index
 for dropped tokens), so ``_one_hot`` compares against ``arange``; and the
 top-k breaks ties by the lower expert index, as ``jax.lax.top_k`` does,
 through a stable descending sort (bf16 router logits tie often).
+
+Under a mesh (``_moe_mesh``) the layer runs on each rank's rows in whole
+groups, its aux losses reduced over the batch split; the expert weights
+are gathered whole (expert parallelism over ``model`` is not ported).
 """
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (dense_init, dtype_of, glu_mlp,
                                        init_glu_mlp)
+from repro_torch.parallel.sharding import (batch_placements, local_offset,
+                                          run_local)
 
 
 class MoE(nn.Module):
@@ -63,8 +71,11 @@ def _top_k(x, k):
     return vals[..., :k], idx[..., :k]
 
 
-def _route(p, xf, cfg: ModelConfig):
-    """xf: (G, T, D) grouped tokens -> top-k experts, gates, aux losses."""
+def _route(p, xf, cfg: ModelConfig, n_tokens=None):
+    """xf: (G, T, D) grouped tokens -> top-k experts, gates, aux losses.
+    With ``n_tokens`` (the global token count, under a mesh) the aux
+    terms come back as this rank's sums over ``n_tokens``: (me, ce,
+    z) to be reduced over the batch split before the product."""
     E, k = cfg.n_experts, cfg.top_k
     logits = (xf @ p.w_router.to(xf.dtype)).float()
     probs = torch.softmax(logits, dim=-1)
@@ -72,10 +83,16 @@ def _route(p, xf, cfg: ModelConfig):
     gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True),
                                             1e-9)
     # Switch-style load-balance loss + router z-loss
+    first = _one_hot(expert_ids[..., 0], E, torch.float32)
+    lse2 = torch.square(torch.logsumexp(logits, dim=-1))
+    if n_tokens is not None:
+        return expert_ids, gate_vals, (probs.sum(dim=(0, 1)) / n_tokens,
+                                       first.sum(dim=(0, 1)) / n_tokens,
+                                       lse2.sum() / n_tokens)
     me = probs.mean(dim=(0, 1))  # (E,)
-    ce = _one_hot(expert_ids[..., 0], E, torch.float32).mean(dim=(0, 1))
+    ce = first.mean(dim=(0, 1))
     lb_loss = E * torch.sum(me * ce)
-    z_loss = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+    z_loss = torch.mean(lse2)
     return expert_ids, gate_vals, {"moe_lb_loss": lb_loss, "moe_z_loss": z_loss}
 
 
@@ -97,30 +114,79 @@ def _capacity(cfg: ModelConfig, T):
     return max(8, -(-c // 8) * 8)  # round up to 8
 
 
+def _group(cfg: ModelConfig, n: int) -> int:
+    """Tokens a group, from the global token count ``n``."""
+    grp = cfg.moe_group
+    return grp if n % grp == 0 and n >= grp else n
+
+
 def moe_layer(p, x, cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """x: (B,S,D) -> (B,S,D), aux losses."""
     B, S, D = x.shape
     cdt = dtype_of(cfg.compute_dtype)
-    grp = cfg.moe_group
-    T = grp if (B * S) % grp == 0 and (B * S) >= grp else B * S
-    G = (B * S) // T
-    xf = x.reshape(G, T, D).to(cdt)
+    T = _group(cfg, B * S)
+    if isinstance(x, DTensor):
+        return _moe_mesh(p, x, cfg, T)
+    xf = x.reshape((B * S) // T, T, D).to(cdt)
     expert_ids, gates, aux = _route(p, xf, cfg)
+    out = _dispatch(p, xf, expert_ids, gates, cfg, T)
+    if cfg.n_shared_experts:
+        out = out + glu_mlp(p.shared, xf, cdt)
+    return out.reshape(B, S, D).to(x.dtype), aux
+
+
+def _dispatch(p, xf, expert_ids, gates, cfg, T):
     C = _capacity(cfg, T)
     pos = _positions_in_expert(expert_ids, cfg.n_experts)  # (G,T,k)
     keep = pos < C
     gates = gates * keep
-
     if cfg.moe_impl == "sort":
-        out = _moe_sort(p, xf, expert_ids, gates, pos, keep, C, cfg)
-    elif cfg.moe_impl == "gshard":
-        out = _moe_gshard(p, xf, expert_ids, gates, pos, keep, C, cfg)
-    else:
-        raise ValueError(f"moe_impl={cfg.moe_impl!r}: gshard | sort")
+        return _moe_sort(p, xf, expert_ids, gates, pos, keep, C, cfg)
+    if cfg.moe_impl == "gshard":
+        return _moe_gshard(p, xf, expert_ids, gates, pos, keep, C, cfg)
+    raise ValueError(f"moe_impl={cfg.moe_impl!r}: gshard | sort")
 
+
+def _moe_mesh(p, x, cfg: ModelConfig, T):
+    """The MoE layer on a DTensor ``x``: the router, the dispatch and the
+    experts run on each rank's rows (``run_local``), in groups of ``T``
+    tokens chosen from the global token count.  A rank must hold whole
+    groups: where its rows do not, they are gathered first (every rank
+    then routes every group).  The load-balance loss is E * sum(me * ce)
+    of the global means, so each rank's sums are reduced over the batch
+    split before the product; the z-loss likewise.  The expert weights are
+    read whole (gathered over ``model`` too: no expert parallelism); the
+    shared experts run tensor-parallel on the DTensor."""
+    B, S, D = x.shape
+    E = cfg.n_experts
+    cdt = dtype_of(cfg.compute_dtype)
+    mesh = x.device_mesh
+    whole = [Replicate()] * mesh.ndim
+    here = batch_placements(x)
+    xl = x.redistribute(mesh, here)
+    if (local_offset(xl, 0)[1] * S) % T:
+        xl = xl.redistribute(mesh, whole)
+    sums = [Partial() if pl == Shard(0) else Replicate()
+            for pl in xl.placements]
+    ws = [w.redistribute(w.device_mesh, whole) for w in (
+        p.w_router, p.experts_wi, p.experts_wg, p.experts_wo)]
+
+    def local(xs, w_router, wi, wg, wo):
+        ex = SimpleNamespace(w_router=w_router, experts_wi=wi,
+                             experts_wg=wg, experts_wo=wo)
+        xf = xs.reshape(-1, T, D).to(cdt)
+        expert_ids, gates, stats = _route(ex, xf, cfg, B * S)
+        out = _dispatch(ex, xf, expert_ids, gates, cfg, T)
+        return (out.reshape(xs.shape),) + stats
+
+    out, me, ce, z = run_local(local, xl, *ws,
+                               out=(list(xl.placements), sums, sums, sums))
+    me, ce, z = (t.redistribute(mesh, whole) for t in (me, ce, z))
+    out = out.redistribute(mesh, here)
     if cfg.n_shared_experts:
-        out = out + glu_mlp(p.shared, xf, cdt)
-    return out.reshape(B, S, D).to(x.dtype), aux
+        out = out + glu_mlp(p.shared, x.to(cdt), cdt)
+    return out.to(x.dtype), {"moe_lb_loss": E * torch.sum(me * ce),
+                             "moe_z_loss": z}
 
 
 def _expert_ffn(p, xe, cdt):

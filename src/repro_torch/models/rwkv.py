@@ -3,7 +3,10 @@ data-dependent decay, and channel-mix.
 
 As in the reference, the five-way data-dependent token-shift interpolation
 (ddlerp) is reduced to learned static per-channel mixes, while the
-data-dependent decay w = exp(-exp(w0 + lora(x))) is kept.  Prefill runs the
+data-dependent decay w = exp(-exp(w0 + lora(x))) is kept.  Under a mesh
+the projections are column-parallel (wr, wk, wv, wg, ck, cr) and
+row-parallel (wo, cv): the scan, the decode step and the state run on each
+rank's heads.  Prefill runs the
 WKV scan through :mod:`repro_torch.kernels.ops` (the CUDA kernel for CUDA
 tensors); decode is one plain step against the carried (D, D) state.
 """
@@ -16,6 +19,8 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import dense_init, dtype_of, init_rmsnorm, rmsnorm
+from repro_torch.parallel.sharding import (flatten_heads, linear, rows,
+                                          split_like, unflatten_heads)
 
 
 def _heads(cfg: ModelConfig):
@@ -72,7 +77,7 @@ def _token_shift(x, prev):
 
 def rwkv6_time_mix(p, x, cfg: ModelConfig, *, cache=None):
     """x: (B,S,D). cache: {"shift_t": (B,1,D), "state": (B,H,Dh,Dh)}."""
-    B, S, d = x.shape
+    B, S, _ = x.shape
     D = cfg.rwkv_head_dim
     H = _heads(cfg)
     cdt = dtype_of(cfg.compute_dtype)
@@ -83,20 +88,18 @@ def rwkv6_time_mix(p, x, cfg: ModelConfig, *, cache=None):
     def mix(m):
         return xc + (xx - xc) * getattr(p, m).to(cdt)
 
-    r = mix("mix_r") @ p.wr.to(cdt)
-    k = mix("mix_k") @ p.wk.to(cdt)
-    v = mix("mix_v") @ p.wv.to(cdt)
-    g = mix("mix_g") @ p.wg.to(cdt)
+    r = linear(mix("mix_r"), p.wr.to(cdt))
+    k = linear(mix("mix_k"), p.wk.to(cdt))
+    v = linear(mix("mix_v"), p.wv.to(cdt))
+    g = linear(mix("mix_g"), p.wg.to(cdt))
     # data-dependent decay (the Finch mechanism), in float32
-    dd = mix("mix_w") @ p.w_lora_a.to(cdt)
-    dd = torch.tanh(dd) @ p.w_lora_b.to(cdt)
+    dd = linear(mix("mix_w"), p.w_lora_a.to(cdt))
+    dd = linear(torch.tanh(dd), p.w_lora_b.to(cdt))
     logdecay = -torch.exp(p.w0.float() + dd.float())
     w = torch.exp(logdecay)  # in (0,1), per (B,S,d)
 
-    rh = r.reshape(B, S, H, D)
-    kh = k.reshape(B, S, H, D)
-    vh = v.reshape(B, S, H, D)
-    wh = w.reshape(B, S, H, D)
+    rh, kh, vh = (unflatten_heads(t, H) for t in (r, k, v))
+    wh = split_like(w.reshape(B, S, H, D), 2, rh, 2)  # r's heads
     new_cache = None
     if cache is not None and S == 1:
         st, y = kops.wkv6_decode(cache["state"], rh[:, 0], kh[:, 0], vh[:, 0],
@@ -112,9 +115,9 @@ def rwkv6_time_mix(p, x, cfg: ModelConfig, *, cache=None):
         if cache is not None:  # prefill
             new_cache = {"shift_t": xc[:, -1:].to(cache["shift_t"].dtype),
                          "state": _wkv_final_state(kh, vh, wh)}
-    y = y.reshape(B, S, d)
+    y = flatten_heads(y)
     y = rmsnorm(p.ln_x, y.to(cdt), cfg.norm_eps) * F.silu(g)
-    out = y @ p.wo.to(cdt)
+    out = linear(y, p.wo.to(cdt))
     return out.to(x.dtype), new_cache
 
 
@@ -133,9 +136,9 @@ def rwkv6_channel_mix(p, x, cfg: ModelConfig, *, cache=None):
     xx = _token_shift(xc, prev)
     xk = xc + (xx - xc) * p.cmix_k.to(cdt)
     xr = xc + (xx - xc) * p.cmix_r.to(cdt)
-    kk = torch.relu(xk @ p.ck.to(cdt)).square()
-    vv = kk @ p.cv.to(cdt)
-    rr = torch.sigmoid(xr @ p.cr.to(cdt))
+    kk = torch.relu(linear(xk, p.ck.to(cdt))).square()
+    vv = linear(kk, p.cv.to(cdt))
+    rr = rows(torch.sigmoid(linear(xr, p.cr.to(cdt))))
     out = rr * vv
     new_shift = xc[:, -1:] if cache is not None else None
     return out.to(x.dtype), new_shift

@@ -5,17 +5,22 @@ Dims: d_inner = expand * d_model; n_ssm_heads = d_inner / ssm_head_dim; the
 B/C projections are shared across heads (n_groups=1, as in zamba2).  Prefill
 runs the SSD scan through :mod:`repro_torch.kernels.ops` (the CUDA kernel for
 CUDA tensors); decode is one plain step against the carried (P, N) state.
+Under a mesh ``w_in`` is column-parallel and its output gathered before the
+split into segments, the conv runs on each rank's channels (``conv_w``'s
+split), the scan and state on its heads, and ``w_out`` is row-parallel.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import dense_init, dtype_of, init_rmsnorm, rmsnorm
-from repro_torch.parallel.sharding import on_local_shards
+from repro_torch.parallel.sharding import (TP_AXIS, flatten_heads, linear, rows,
+                                          run_local, split_like)
 
 
 def _dims(cfg: ModelConfig):
@@ -74,24 +79,27 @@ def mamba2_block(p, x, cfg: ModelConfig, *, cache=None):
     d_inner, H = _dims(cfg)
     cdt = dtype_of(cfg.compute_dtype)
     xc = x.to(cdt)
-    zxbcdt = xc @ p.w_in.to(cdt)
+    # the segments split the projection's columns unevenly: read it whole
+    zxbcdt = rows(linear(xc, p.w_in.to(cdt)))
     z, xi, Bc, Cc, dt = torch.split(zxbcdt, [d_inner, d_inner, N, N, H], dim=-1)
     conv_in = torch.cat([xi, Bc, Cc], dim=-1)
     conv_state = cache["conv"] if cache is not None else None
     # the conv + silu chain and the gate into the norm run in float32 and
     # round once, as the reference's fused elementwise code does under XLA
     w = p.conv_w.to(cdt).float()
-    if conv_state is None:  # training: on each rank's rows under a mesh
-        conv_out = on_local_shards(lambda x, w: _causal_conv(x, w)[0],
-                                   conv_in.float(), w)
+    # under a mesh on each rank's rows and conv channels (conv_w's split)
+    conv_in = split_like(conv_in.float(), 2, w, 1)
+    if conv_state is None:
+        conv_out = run_local(lambda x, w: _causal_conv(x, w)[0], conv_in, w)
         new_conv = None
     else:
-        conv_out, new_conv = _causal_conv(conv_in.float(), w, conv_state)
-    conv_out = F.silu(conv_out).to(cdt)
+        conv_out, new_conv = run_local(_causal_conv, conv_in, w, conv_state,
+                                       out=_two(conv_in))
+    conv_out = rows(F.silu(conv_out).to(cdt))
     xi, Bc, Cc = torch.split(conv_out, [d_inner, N, N], dim=-1)
     dtv = F.softplus(dt.float() + p.dt_bias.float())
     A = -torch.exp(p.A_log.float())
-    xh = xi.reshape(B, S, H, P)
+    xh = _split_heads(xi.reshape(B, S, H, P))
 
     if cache is not None and S == 1:
         h, y = kops.ssd_decode(cache["ssm"], xh[:, 0].float(), dtv[:, 0], A,
@@ -106,10 +114,29 @@ def mamba2_block(p, x, cfg: ModelConfig, *, cache=None):
             new_cache = {"conv": new_conv.to(cache["conv"].dtype),
                          "ssm": _final_state(xh, dtv, A, Bc, Cc)}
     y = y + p.D.float()[None, None, :, None] * xh.float()
-    y = y.reshape(B, S, d_inner)
+    y = flatten_heads(y)
     y = rmsnorm(p.ssm_norm, y * F.silu(z.float()), cfg.norm_eps).to(cdt)
-    out = y @ p.w_out.to(cdt)
+    out = linear(y, p.w_out.to(cdt))
     return out.to(x.dtype), new_cache
+
+
+def _two(x):
+    """The placements of two outputs placed as ``x`` (plain: None)."""
+    pl = list(getattr(x, "placements", ()))
+    return (pl, pl)
+
+
+def _split_heads(x):
+    """A DTensor ``x`` (B,S,H,P) split over ``TP_AXIS`` on its heads
+    where they divide it (a slice of replicated rows), else as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    want = [Shard(2) if name == TP_AXIS and pl == Replicate()
+            and x.shape[2] % mesh.size(i) == 0 else pl
+            for i, (name, pl) in enumerate(zip(mesh.mesh_dim_names,
+                                               x.placements))]
+    return x.redistribute(mesh, want)
 
 
 def _final_state(x, dt, A, B_, C):

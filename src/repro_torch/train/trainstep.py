@@ -14,19 +14,21 @@ step) the step runs under ``activation_rules(mesh, rules)``.  The state
 comes placed: parameters and optimizer state are DTensors, by
 ``param_spec_tree`` and ``opt_shardings`` (``shard_state``, or ``restore``
 with those shardings).  Each microbatch is split over the batch axes
-(``shard_input``).  The forward reads each parameter whole (a
-differentiable redistribute to ``Replicate()``, an all-gather of a split
-weight) and DTensor takes its gradient back to the parameter's
-placements (a reduce-scatter).  A layer's weights are gathered inside its
-remat region, so one layer's are whole at a time (the recompute gathers
-them again); the embedding, norms, encoder and shared blocks are gathered
-once for the microbatch.  The ``model`` axis does no tensor parallelism:
-its ranks compute the same rows, where GSPMD, the reference's, shards the
-products themselves.  Activations stay batch-sharded, and
-attention and the scans run on each rank's local rows
-(``sharding.on_local_shards``): the flash kernels on the card, never a
-plain version because the input is a DTensor.  The metrics come back as
-plain tensors.
+(``shard_input``).  The forward reads each parameter in
+``sharding.compute_placements``: gathered over the fsdp dims (a
+differentiable redistribute, an all-gather whose gradient goes back to
+the parameter's placements as a reduce-scatter), its split over
+``model`` kept: the products run tensor-parallel (``sharding.linear``:
+column-parallel projections into split heads, row-parallel ones whose
+partial sums are reduced), as GSPMD shards the reference's.  A layer's
+weights are gathered inside its remat region, so one layer's are
+gathered at a time (the recompute gathers them again); the embedding
+(vocab-parallel), norms, encoder and shared blocks are gathered once for
+the microbatch.  Activations stay batch-sharded between layers, split
+over heads inside them; attention and the scans run on each rank's local
+rows and heads (``sharding.run_local``): the flash kernels on the card,
+never a plain version because the input is a DTensor.  The metrics come
+back as plain tensors.
 
 ``TrainState.params`` is the model (``lm.LM``), updated in place by the
 optimizer; ``opt`` is the optimizer's state over
@@ -39,7 +41,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 from torch import nn
-from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -117,17 +119,15 @@ def shard_state(state: TrainState, mesh, rules=None) -> TrainState:
     optimizer state distributed to their placements on ``mesh``, once:
     the step takes the state as placed."""
     params = named_params(state.params)
-    specs = shd.param_spec_tree(params, mesh, rules)
-    osh = opt_shardings(state.opt, params, specs)
-    place_params(state.params, {
-        k: distribute_tensor(p.detach(), mesh, specs[k].placements())
-        for k, p in params.items()})
+    osh = opt_shardings(state.opt, params,
+                        shd.param_spec_tree(params, mesh, rules))
+    shd.shard_module(state.params, mesh, rules)
 
     def place(node, sh):
         if isinstance(node, dict):
             return {k: place(v, sh[k]) for k, v in node.items()}
-        return node if sh is None else distribute_tensor(node, mesh,
-                                                         sh.placements())
+        return node if sh is None else shd.distribute(node, mesh,
+                                                      sh.placements())
     return state._replace(opt=place(state.opt, osh))
 
 
@@ -167,19 +167,18 @@ class _Loss(nn.Module):
 
 def _run_loss(model, batch, cfg, mesh, leaves=None):
     """(loss, metrics, gradients of ``leaves`` or None).  Under a mesh the
-    forward reads every parameter whole through a differentiable
-    redistribute, and the gradients reach the parameters' own placements
-    back through it: the layers' weights one layer at a time, inside its
-    remat region (``lm.forward_train``), the rest (embedding, norms,
-    encoder, shared blocks) gathered here for the whole microbatch."""
+    forward reads every parameter in ``sharding.compute_placements``
+    through a differentiable redistribute, and the gradients reach the
+    parameters' own placements back through it: the layers' weights one
+    layer at a time, inside its remat region (``lm.forward_train``), the
+    rest (embedding, norms, encoder, shared blocks) gathered here for the
+    whole microbatch."""
     fn = _Loss(model, cfg, leaves)
     if mesh is None:
         return fn(batch)
-    full = {f"model.{k}": p.redistribute(p.device_mesh,
-                                         [Replicate()] * p.device_mesh.ndim)
-            for k, p in model.named_parameters()
-            if not k.startswith("layers.")}
-    return torch.func.functional_call(fn, full, (batch,))
+    return torch.func.functional_call(
+        fn, {f"model.{k}": t for k, t in lm.gathered_top(model).items()},
+        (batch,))
 
 
 def make_train_step(cfg: ModelConfig, optimizer: Optional[Optimizer] = None,
@@ -191,9 +190,9 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[Optimizer] = None,
     def train_step(state: TrainState, batch: Dict[str, Any]):
         with shd.activation_rules(mesh, rules):
             params = named_params(state.params)
-            device = (torch.device(mesh.device_type) if mesh is not None
-                      else next(iter(params.values())).device)
-            batch = to_device(batch, device)
+            # the parameters' (local) device: a card, the CPU, or meta in
+            # the dry run
+            batch = to_device(batch, next(iter(params.values())).device)
 
             def split(x):  # (B, ...) -> (n_mb, B/n_mb, ...)
                 return x.reshape((n_mb, x.shape[0] // n_mb)
@@ -228,11 +227,9 @@ def make_eval_step(cfg: ModelConfig, mesh=None, rules=None):
     @torch.no_grad()
     def eval_step(params, batch):
         with shd.activation_rules(mesh, rules):
-            if mesh is None:
-                batch = to_device(batch, next(params.parameters()).device)
-            else:
-                batch = {k: shard_input(v, mesh) for k, v in to_device(
-                    batch, torch.device(mesh.device_type)).items()}
+            batch = to_device(batch, next(params.parameters()).device)
+            if mesh is not None:
+                batch = {k: shard_input(v, mesh) for k, v in batch.items()}
             _, metrics, _ = _run_loss(params, batch, cfg, mesh)
         return {k: _plain(v) for k, v in metrics.items()}
     return eval_step

@@ -163,30 +163,31 @@ def mesh_train_rank(rank, world, tmp, archs, steps):
     train steps on a (2, world/2) mesh from ``shard_state`` of a seeded
     state, and the same steps unsharded; rank 0 writes both runs' losses
     and gradient norms, the stepped ``embed`` and ``layers.0.*``
-    parameters, and, over every layer call (``with_whole_params``), the
-    most parameters whole outside that layer: those an earlier layer under
-    remat gathered and are still alive, and the other layers' split
+    parameters, and, over every layer call (``with_gathered_params``), the
+    most parameters gathered outside that layer: those an earlier layer
+    under remat gathered and are still alive, and the other layers' split
     weights no longer split."""
     import weakref
 
     import torch
     from torch.distributed.device_mesh import init_device_mesh
-    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor import Replicate, Shard
 
     from repro_torch.configs import registry
     from repro_torch.data.pipeline import SyntheticTokens
     from repro_torch.launch.train import with_extras
     from repro_torch.models import lm
-    from repro_torch.train.optimizer import make_optimizer
     from repro_torch.train.trainstep import (init_state, make_train_step,
                                              shard_state)
     mesh = init_device_mesh("cpu", (2, world // 2),
                             mesh_dim_names=("data", "model"))
     gathered, most, prologue = [], [0], set()
     split, model = set(), [None]
-    real = lm.with_whole_params
+    real = lm.with_gathered_params
 
     def spy(module, fn, *args):
+        own = {id(p) for p in module.parameters()}  # nothing to gather
+
         def run(m, *a):
             most[0] = max(most[0], sum(r() is not None for r in gathered))
             # the other layers' split weights are still split
@@ -198,10 +199,11 @@ def mesh_train_rank(rank, world, tmp, archs, steps):
             # a prologue layer runs outside remat (as the reference's), so
             # its backward keeps what it gathered
             gathered[:] = ([] if id(module) in prologue
-                           else [weakref.ref(p) for p in m.parameters()])
+                           else [weakref.ref(p) for p in m.parameters()
+                                 if id(p) not in own])
             return fn(m, *a)
         return real(module, run, *args)
-    lm.with_whole_params = spy
+    lm.with_gathered_params = spy
     out = {}
     for arch in archs:
         cfg = registry.reduced_config(arch).replace(compute_dtype="float32",
@@ -216,7 +218,7 @@ def mesh_train_rank(rank, world, tmp, archs, steps):
         batches = list(with_extras((data.batch_at(i) for i in range(steps)),
                                    extras))
         for label in ("plain", "mesh"):
-            opt = make_optimizer(cfg.optimizer, lr=1e-3)
+            opt = step_optimizer(cfg)
             state = init_state(torch.Generator().manual_seed(0), cfg, opt,
                                "cpu")
             with torch.no_grad():
@@ -233,12 +235,16 @@ def mesh_train_rank(rank, world, tmp, archs, steps):
             if use is not None:
                 state = shard_state(state, mesh)
                 # outside the step's rules too (a recompute on autograd's
-                # device thread): a layer's weights arrive whole
-                seen = real(state.params.layers[-1],
-                            lambda m: [q for p in m.parameters()
-                                       for q in p.placements])
-                out[f"{arch}/whole_outside_rules"] = all(
-                    not isinstance(q, Shard) for q in seen)
+                # device thread): a layer's weights arrive gathered over
+                # every mesh dim but model, and split over model as placed
+                last = state.params.layers[-1]
+                seen = real(last, lambda m: [list(p.placements)
+                                             for p in m.parameters()])
+                want = [[q if name == "model" else Replicate()
+                         for name, q in zip(mesh.mesh_dim_names,
+                                            p.placements)]
+                        for p in last.parameters()]
+                out[f"{arch}/gathered_outside_rules"] = seen == want
                 model[0] = state.params
                 split.clear()
                 split.update(k for k, p in state.params.named_parameters()
@@ -260,3 +266,231 @@ def mesh_train_rank(rank, world, tmp, archs, steps):
     if rank == 0:
         with open(os.path.join(tmp, "mesh_train.json"), "w") as f:
             json.dump(out, f)
+
+
+def step_optimizer(cfg):
+    """The optimizer of the mesh-against-unsharded step tests: the
+    config's, at lr 1e-3, AdamW with eps 1e-3.  Under tensor parallelism
+    the mesh step sums in another order than the unsharded one (float32
+    noise of ~1e-7 a layer); at eps 1e-8 AdamW's second step divides a
+    momentum that nearly cancels by its own size, which turns that noise
+    into ~1e-4 in zero-initialized norm scales.  At eps 1e-3 each update
+    is a smooth function of its gradient, so the stepped parameters
+    measure the step."""
+    from repro_torch.train.optimizer import make_optimizer
+    kw = {"eps": 1e-3} if cfg.optimizer == "adamw" else {}
+    return make_optimizer(cfg.optimizer, lr=1e-3, **kw)
+
+
+def _seeded_state(cfg, opt, torch):
+    from repro_torch.train.trainstep import init_state
+    state = init_state(torch.Generator().manual_seed(0), cfg, opt, "cpu")
+    with torch.no_grad():
+        for name, p in state.params.named_parameters():
+            if name.endswith("xgate"):
+                p.fill_(1.0)  # tanh(0) would hide the layer
+    return state
+
+
+def _batches(cfg, batch, seq, steps):
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.launch.train import with_extras
+    extras = {}
+    if cfg.n_enc_layers:
+        extras["enc_embed"] = ((batch, cfg.enc_len, cfg.d_model), "bfloat16")
+    if cfg.n_img_tokens:
+        extras["img_embed"] = ((batch, cfg.n_img_tokens, cfg.d_vision),
+                               "bfloat16")
+    data = SyntheticTokens(batch, seq, cfg.vocab_size)
+    return list(with_extras((data.batch_at(i) for i in range(steps)), extras))
+
+
+def _spy_model_gathers(torch, model_dim):
+    """Record the global shape of every tensor DTensor all-gathers over
+    mesh dim ``model_dim`` (a Shard there redistributed to anything but
+    the same Shard), whether asked for (``redistribute``) or implicit (an
+    op's sharding propagation): returns the list it appends to."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor import _dispatch, _redistribute
+    seen = []
+    real = _redistribute.redistribute_local_tensor
+
+    def spy(local, current, target, *args, **kwargs):
+        a, b = current.placements[model_dim], target.placements[model_dim]
+        if isinstance(a, Shard) and a != b:
+            seen.append(tuple(current.shape))
+        return real(local, current, target, *args, **kwargs)
+    _redistribute.redistribute_local_tensor = spy
+    _dispatch.redistribute_local_tensor = spy
+    return seen
+
+
+def tensor_parallel_rank(rank, world, tmp, cases, shapes, steps, batch,
+                         seq):
+    """For each case (label, arch, config overrides): ``steps`` train steps
+    (reduced config, float32) unsharded on rank 0, then on each mesh of
+    ``shapes`` ("data", "model") from ``shard_state`` of the same seeded
+    state, with an eval step before each step; rank 0 writes every run's
+    metrics and stepped parameters (``<label>_<run>.npz``, run "plain" or
+    the mesh's "DxM"), and for each mesh the global shapes of the tensors
+    all-gathered over ``model`` during its steps, the shapes of the weights
+    split over ``model`` and the local head counts each call of the flash
+    and WKV6 dispatch received (and the MoE groups each rank routed)
+    (``tp.json``)."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.train.trainstep import (make_eval_step, make_train_step,
+                                             shard_state)
+    meshes = {f"{a}x{b}": init_device_mesh("cpu", (a, b),
+                                           mesh_dim_names=("data", "model"))
+              for a, b in shapes}
+    gathers = _spy_model_gathers(torch, 1)
+    heads = {"flash": [], "wkv6": [], "moe_groups": []}
+    flash, wkv, route = ops._flash_local, ops._wkv6_scan, moe._route
+
+    def route_spy(p, xf, cfg, n_tokens=None):
+        if n_tokens is not None:  # under the mesh: (groups here, in all)
+            heads["moe_groups"].append([xf.shape[0], n_tokens // xf.shape[1]])
+        return route(p, xf, cfg, n_tokens)
+
+    def flash_spy(q, k, v, *a):
+        heads["flash"].append([q.shape[2], k.shape[2]])
+        return flash(q, k, v, *a)
+
+    def wkv_spy(r, *a, **kw):
+        heads["wkv6"].append([r.shape[2]])
+        return wkv(r, *a, **kw)
+    moe._route = route_spy
+    ops._flash_local, ops._wkv6_scan = flash_spy, wkv_spy
+    out = {}
+    for label, arch, over in cases:
+        cfg = registry.reduced_config(arch).replace(
+            compute_dtype="float32", param_dtype="float32",
+            accum_dtype="float32", microbatch=2, **over)
+        rules = registry.arch_rules(arch)
+        batches = _batches(cfg, batch, seq, steps)
+        res = {"n_heads": [cfg.n_heads, cfg.n_kv_heads,
+                           cfg.d_model // cfg.rwkv_head_dim]}
+        # the unsharded run needs no collective: rank 0 alone runs it
+        for run, mesh in [("plain", None)] + list(meshes.items()):
+            if mesh is None and rank != 0:
+                continue
+            opt = step_optimizer(cfg)
+            state = _seeded_state(cfg, opt, torch)
+            if mesh is not None:
+                state = shard_state(state, mesh, rules)
+                res[f"split/{run}"] = sorted(
+                    {tuple(p.shape) for k, p in state.params.named_parameters()
+                     if isinstance(p.placements[1], Shard)
+                     and "experts" not in k})
+                del gathers[:]
+                for key in heads:
+                    heads[key].clear()
+            step = make_train_step(cfg, opt, mesh, rules)
+            evaluate = make_eval_step(cfg, mesh, rules)
+            metrics = []
+            for b in batches:
+                ev = evaluate(state.params, b)
+                state, m = step(state, b)
+                metrics.append([float(m["loss"]), float(m["grad_norm"]),
+                                float(ev["loss"]), float(ev["moe_lb_loss"]),
+                                float(ev["moe_z_loss"])])
+            res[run] = metrics
+            if mesh is not None:  # before the parameters are gathered below
+                res[f"gathered/{run}"] = sorted(set(gathers))
+                res[f"heads/{run}"] = {k: v[:] for k, v in heads.items()}
+            leaves = {k: (p.full_tensor() if mesh is not None else p)
+                      .detach().numpy()
+                      for k, p in state.params.named_parameters()}
+            if rank == 0:
+                np.savez(os.path.join(tmp, f"{label}_{run}.npz"), **leaves)
+        out[label] = res
+    if rank == 0:
+        with open(os.path.join(tmp, "tp.json"), "w") as f:
+            json.dump(out, f)
+
+
+def serve_mesh_rank(rank, world, tmp, cases, shape, batch, prompt, steps):
+    """For each case (label, arch, config overrides, rules or None):
+    prefill + ``steps`` greedy decode steps through ``make_prefill_fn`` /
+    ``make_decode_fn`` on a ``shape`` mesh (parameters placed by
+    ``shard_module``) and unsharded, and ``ServeEngine.generate`` both
+    ways (float32 caches and compute); rank 0 writes every step's logits
+    (``<label>_<run>.npz``), the generated tokens and the caches'
+    placements (``serve.json``)."""
+    import copy
+
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.serve.engine import (ServeEngine, extra_shapes,
+                                          make_decode_fn, make_prefill_fn)
+    mesh = init_device_mesh("cpu", tuple(shape),
+                            mesh_dim_names=("data", "model"))
+    out = {}
+    for label, arch, over in cases:
+        cfg = registry.reduced_config(arch).replace(
+            compute_dtype="float32", **over)
+        rules = registry.arch_rules(arch)
+        params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        with torch.no_grad():
+            for name, p in params.named_parameters():
+                if name.endswith("xgate"):
+                    p.fill_(1.0)
+        g = torch.Generator().manual_seed(1)
+        toks = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g)
+        extra = [torch.randn(s, generator=g).to(torch.bfloat16)
+                 for s in extra_shapes(cfg, batch).values()]
+        res = {}
+        for run in ("plain", "mesh"):
+            use = mesh if run == "mesh" else None
+            if use is None and rank != 0:  # no collective: rank 0 alone
+                continue
+            model = copy.deepcopy(params)
+            if use is not None:
+                shd.shard_module(model, mesh, rules)
+            max_len = prompt + steps + 1
+            prefill = make_prefill_fn(cfg, max_len, use, rules,
+                                      cache_dtype=torch.float32)
+            decode = make_decode_fn(cfg, use, rules)
+            with torch.inference_mode():
+                logits, caches = prefill(model, toks, *extra)
+                logs = [logits[:, -1]]
+                for _ in range(steps):
+                    tok = torch.argmax(_whole(logs[-1]), -1)[:, None]
+                    logits, caches = decode(model, tok, caches)
+                    logs.append(logits)
+                eng = ServeEngine(cfg, model, max_len=max_len,
+                                  cache_dtype=torch.float32, mesh=use,
+                                  rules=rules)
+                gen = eng.generate(toks, steps + 1, dict(zip(
+                    extra_shapes(cfg, batch), extra)))
+            whole = [_whole(x).numpy() for x in logs]  # every rank gathers
+            if rank == 0:
+                np.savez(os.path.join(tmp, f"{label}_{run}.npz"), *whole)
+            res[run] = {"tokens": gen.tolist(), "caches": sorted({
+                f"{k}:{','.join(_placement(p) for p in v.placements)}"
+                for c in caches["layers"] for k, v in c.items()
+                if hasattr(v, "placements")})}
+        out[label] = res
+    if rank == 0:
+        with open(os.path.join(tmp, "serve.json"), "w") as f:
+            json.dump(out, f)
+
+
+def _whole(x):
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def _placement(p):
+    """S<dim> for a split, R for a replica (placements print differently
+    across torch versions)."""
+    return f"S{p.dim}" if hasattr(p, "dim") else "R"

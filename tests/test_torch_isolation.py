@@ -1,5 +1,7 @@
 """The PyTorch port stands alone: importing every ``repro_torch`` module and
-``chip_smoke.py`` loads neither JAX nor any module of the ``repro`` package,
+``chip_smoke.py`` loads neither JAX nor any module of the ``repro`` package
+(nor ``torch.testing._internal.distributed``, whose fake process group
+only a dry run needs),
 and its CUDA entry points raise when no card is visible and the CPU was not
 asked for (``launch.train`` among them), while the host-only CLIs
 (``broker-serve``, ``merlin-validate``, ``merlin-status``) run without one.  Runs in a fresh interpreter, so nothing
@@ -75,6 +77,10 @@ host["stdout"] = out.getvalue()
 leaks = sorted(m for m in sys.modules
                if m == "jax" or m.startswith(("jax.", "jaxlib"))
                or m == "repro" or m.startswith("repro."))
+# the dry run's fake process group comes from torch's test internals,
+# imported only when a dry run makes one
+leaks += sorted(m for m in sys.modules
+                if m.startswith("torch.testing._internal.distributed"))
 print(json.dumps({"modules": mods, "leaks": leaks, "raised": raised,
                   "host": host,
                   "cuda": torch.cuda.is_available(),
@@ -124,7 +130,8 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.train", "repro_torch.train.optimizer",
                 "repro_torch.train.trainstep", "repro_torch.train.trainer",
                 "repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
-                "repro_torch.launch.train"):
+                "repro_torch.launch.train", "repro_torch.launch.mesh",
+                "repro_torch.launch.dryrun", "repro_torch.kernels.flops"):
         assert mod in res["modules"]
     host = res["host"]
     assert host["broker_serve_help"] == 0 and "--join" in host["stdout"]

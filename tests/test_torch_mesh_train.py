@@ -6,12 +6,15 @@ cross-attention (``xattn``), RWKV6 and zamba2's Mamba2 + shared attention.
 Two steps each from one seeded state (``shard_state`` places it), float32
 compute: both losses and gradient norms, and the stepped ``embed`` and
 ``layers.0.*`` parameters, within rel 1e-5 (only the order of the sums
-differs).  And a layer under remat holds its weights whole only inside
-its own call: when a layer gathers its weights, none that an earlier
-remat layer gathered is still alive (zamba2's prologue runs outside
-remat, as the reference's does, and keeps them for its backward).  A
-layer gathers its weights outside the step's thread-local rules as well:
-on the card autograd recomputes a remat layer on its own device thread.
+differs: the ``model`` axis splits the products, so AdamW steps at eps
+1e-3, ``_torch_dist.step_optimizer``).  And a layer under remat holds its
+weights gathered only inside its own call: when a layer gathers its
+weights, none that an earlier remat layer gathered is still alive
+(zamba2's prologue runs outside remat, as the reference's does, and keeps
+them for its backward).  A layer gathers its weights over the fsdp dims,
+keeping their split over ``model``, outside the step's thread-local rules
+as well: on the card autograd recomputes a remat layer on its own device
+thread.
 """
 import json
 
@@ -45,4 +48,4 @@ def test_mesh_steps_equal_the_unsharded_steps(runs, arch):
         rel = np.linalg.norm(got[k] - want[k]) / np.linalg.norm(want[k])
         assert rel < REL, (k, rel)
     assert mesh["still_whole"] == 0
-    assert out[f"{arch}/whole_outside_rules"]
+    assert out[f"{arch}/gathered_outside_rules"]
