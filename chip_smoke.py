@@ -7,12 +7,14 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   1. environment: versions, the card's name and power limit;
   2. build: every CUDA source under src/repro_torch/kernels/csrc with nvcc
      for sm_90a, into build/ (flash_attention, flash_attention_bwd,
-     wkv6_scan, ssd_scan), where the D-192 flash forward instances must
-     report 0 spill bytes; then the tensor-core instructions of each kernel
-     function (cuobjdump -sass), which every bf16 instance of the flash
-     forward (D 16-192), the flash backward's tensor-core grid, WKV6 and
-     SSD must have, 24 in all (the fp32 kernels and the backward's D_i
-     pass report 0);
+     wkv6_scan, ssd_scan, wkv6_scan_bwd, ssd_scan_bwd), where the D-192
+     flash forward instances must report 0 spill bytes (the D-192 backward
+     and the scans' backward kernels are reported); then the tensor-core
+     instructions of each kernel function (cuobjdump -sass), which every
+     bf16 instance of the flash forward (D 16-192), the flash backward's
+     tensor-core grid (D 16-192), WKV6 and SSD must have, 25 in all (the
+     fp32 kernels, the backward's D_i pass and the scans' backward kernels
+     report 0);
   3. each kernel against its plain PyTorch version on the card, at the
      main paths' shapes and the edge cases, with the tolerance stated, and
      device times of kernel, plain version and PyTorch's own call (where
@@ -30,11 +32,19 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      128, ragged S, cross S != T, two fp32 shapes), in bf16 also to the
      mirror of its rounding points ref.flash_attention_bwd_tc_ref; the
      autograd Function must give the same gradients, and its library time
-     is scaled_dot_product_attention's backward;
+     is scaled_dot_product_attention's backward; D 192 (deepseek's MLA) at
+     a training microbatch of the bundles and at 8 x 128.  The scans'
+     backward kernels are held to ref.wkv6_scan_bwd_ref /
+     ref.ssd_scan_bwd_ref at WKV_BWD_SHAPES / SSD_BWD_SHAPES (the training
+     shapes, ragged S, float32, WKV6 decays at the clip), their autograd
+     Functions to the direct calls, and timed against their bound (bytes,
+     or the products at the bf16 peak; no one PyTorch call computes them);
   4. serve: jag-surrogate, rwkv6-3b, zamba2-1.2b, phi4-mini-3.8b,
-     deepseek-v2-lite-16b, whisper-tiny, llama-3.2-vision-11b and
-     starcoder2-15b at full width and full depth, gemma2-27b at full
-     width and 8 of its 46 layers, through ServeEngine (random weights from
+     whisper-tiny and llama-3.2-vision-11b at full width and full depth,
+     deepseek-v2-lite-16b at full width and 14 of its 27 layers (the dense
+     prologue and 13 MoE layers), starcoder2-15b at full width and 20 of
+     its 40, gemma2-27b at full width and 8 of its 46 layers, through
+     ServeEngine (random weights from
      seed 0; batch 4, prompts of 32, 200 and 512 tokens, 32 new tokens
      each; gemma2: batch 1, one prompt of 6144 tokens, past its 4096
      window; whisper: prompts of 32, 200 and 400, inside its 448-token
@@ -43,11 +53,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      set to 1.0, so its cross-attention reaches the logits.  Every launch
      count is set to 0 just before each model's run and read just after;
      the counts must be exact, prefill and decode (jag 12 flash; rwkv6-3b
-     96 WKV; zamba2 99 SSD and 15 flash; phi4 96, gemma2 8 and deepseek 81
-     flash, and 81 more for deepseek's run with int8 latent caches;
+     96 WKV; zamba2 99 SSD and 15 flash; phi4 96, gemma2 8 and deepseek 42
+     flash, and 42 more for deepseek's run with int8 latent caches;
      whisper 3 x (12 + 31 x 4) = 408 and llama-vision 3 x (40 + 31 x 8) =
      864, its cross-attention running at every decode step; starcoder2
-     120), and the first-token and first decode-step logits are held
+     60), and the first-token and first decode-step logits are held
      against a run of the plain versions from the plain run's own caches
      (MoE layers at the kernel run's routes).  A float32-compute
      prefill must launch one prefill's count.  One prefill and 8 decode
@@ -98,6 +108,18 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      iteration to the last.
 Phases 6-10 launch none of the kernels: their counts are set to 0
 before each phase and must read 0 after it.
+ 10b. train_scan_archs (right after the dryrun phase, on the quickstart
+     study's bundles drawn on the CPU): zamba2-1.2b at full width and
+     depth, rwkv6-3b at full width and 16 of 32 layers, deepseek-v2-lite-16b
+     at its dense prologue and 2 MoE layers, SCAN_TRAIN_STEPS steps each
+     through ``python -m repro_torch.launch.train`` (no checkpoint):
+     launch counts exact (each layer's kernel forward twice a microbatch,
+     once in a prologue layer, its backward kernel once: WKV6, SSD, the
+     flash kernels at D 64 and 192), the loss falls, step wall, peak
+     memory and a profiled busy time (one step, warm from the run); then
+     one float32 step's forward and backward on the card equal to the
+     CPU's at rel 1e-4 (the loss and every parameter's gradient, leaf by
+     leaf; full width, the depth cut; deepseek at the card's routes);
  11. train: ``python -m repro_torch.launch.train`` (jag-surrogate at full
      width and depth, AdamW, remat full) in this process: 200 steps over the
      quickstart study's bundles (phase 6's archive), where the mean loss of
@@ -112,9 +134,9 @@ before each phase and must read 0 after it.
      a step.
  12. train_encdec: whisper-tiny at full width and depth through
      ``python -m repro_torch.launch.train --arch whisper-tiny`` (bf16 frame
-     embeddings in every batch, 8 microbatches a step): 30 steps on the
+     embeddings in every batch, 8 microbatches a step): 20 steps on the
      quickstart's bundles, where the loss must fall, and 10 synthetic
-     steps at batch 8 x seq 128 (uniform tokens, nothing to learn); 10
+     steps at batch 8 x seq 128 (uniform tokens, nothing to learn); 5
      float32-compute steps (batch 1) against the CPU port's at rel 1e-3.
      llama-3.2-vision-11b at full width and 5 of its 40 layers (one
      xattn, four attn; xgates 1.0) trains 10 steps at batch 8 x seq 128
@@ -160,9 +182,11 @@ the rest of the repository beside it, the script exits non-zero before it.
 from __future__ import annotations
 
 import contextlib
+import copy
 import gc
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -182,6 +206,7 @@ from repro_torch import env  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fak  # noqa: E402
+from repro_torch.kernels import flops as kflops  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssdk  # noqa: E402
 from repro_torch.kernels import wkv6_scan as wkvk  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
@@ -273,15 +298,19 @@ MAIN_PATH = ("jag_prefill_512", "jag_prefill_200", "jag_prefill_32",
              "whisper_self_400", "whisper_cross_400", "whisper_cross_decode",
              "llama_vision_self_512", "llama_vision_cross_512",
              "llama_vision_cross_decode", "starcoder2_prefill_512")
-# kernel -> (module, its launch counter); flash_attention_bwd is built from
-# csrc/flash_attention_bwd.cu and counted by the flash wrapper
+# kernel -> (module, its launch counter); each backward is built from
+# csrc/<name>.cu and counted by its forward's wrapper
 KERNELS = {"flash_attention": (fak, "launches"),
            "flash_attention_bwd": (fak, "bwd_launches"),
-           "wkv6_scan": (wkvk, "launches"), "ssd_scan": (ssdk, "launches")}
+           "wkv6_scan": (wkvk, "launches"), "ssd_scan": (ssdk, "launches"),
+           "wkv6_scan_bwd": (wkvk, "bwd_launches"),
+           "ssd_scan_bwd": (ssdk, "bwd_launches")}
 # the serve lines' names of the counts
 COUNT_KEYS = {"flash_attention": "flash_launches",
               "flash_attention_bwd": "flash_bwd_launches",
-              "wkv6_scan": "wkv6_launches", "ssd_scan": "ssd_launches"}
+              "wkv6_scan": "wkv6_launches", "ssd_scan": "ssd_launches",
+              "wkv6_scan_bwd": "wkv6_bwd_launches",
+              "ssd_scan_bwd": "ssd_bwd_launches"}
 
 # Scans: max |kernel - plain| / max |plain| below SCAN_REL.  float32 is
 # tests/test_kernels.py's bar; a bf16 output is rounded to 8 mantissa bits
@@ -327,6 +356,33 @@ SSD_SHAPES = [
     ("strong_zamba2_512", 4, 512, 64, 64, 64, "strong", BF16, 256),
 ]
 SSD_MAIN = ("zamba2_prefill_512", "zamba2_prefill_200", "zamba2_prefill_32")
+# The scans' backward kernels, held to ref.wkv6_scan_bwd_ref /
+# ref.ssd_scan_bwd_ref (chunk 16) at SCAN_REL: (name, B, S, H, D, decay,
+# dtype) and (name, B, S, H, P, N, decay, dtype).  A train phase's
+# microbatch is one row of the quickstart's bundles (8 tokens: the main
+# path, first), then a 128-token microbatch of 8 rows, ragged S, float32,
+# and WKV6 decays at the clip; S past the kernels' 64-step chunks at every
+# head size (a chunk holds 4, 16 or 64 steps of recomputed segments).
+WKV_BWD_SHAPES = [
+    ("rwkv6_train_bundles", 1, 8, 40, 64, "sigmoid", BF16),
+    ("rwkv6_train_128", 8, 128, 40, 64, "sigmoid", BF16),
+    ("rwkv6_train_128_clip", 8, 128, 40, 64, "strong", BF16),
+    ("bf16_ragged_77_clip", 2, 77, 40, 64, "strong", BF16),
+    ("f32_D64", 2, 64, 4, 64, "sigmoid", F32),
+    ("f32_D32_ragged_clip", 1, 137, 3, 32, "strong", F32),
+    ("f32_D16", 1, 150, 2, 16, "sigmoid", F32),
+]
+WKV_BWD_TIMED = ("rwkv6_train_bundles", "rwkv6_train_128")
+SSD_BWD_SHAPES = [
+    ("zamba2_train_bundles", 1, 8, 64, 64, 64, "normal", BF16),
+    ("zamba2_train_128", 8, 128, 64, 64, 64, "normal", BF16),
+    ("bf16_ragged_77", 2, 77, 64, 64, 64, "normal", BF16),
+    ("bf16_strong_128", 2, 128, 64, 64, 64, "strong", BF16),
+    ("f32_P64", 2, 64, 4, 64, 64, "normal", F32),
+    ("f32_P32_N128_ragged", 1, 137, 3, 32, 128, "normal", F32),
+    ("f32_P16_N16", 1, 150, 2, 16, 16, "normal", F32),
+]
+SSD_BWD_TIMED = ("zamba2_train_bundles", "zamba2_train_128")
 # float32-compute serve run against its plain run: rounding only
 FP32_SERVE_REL = 1e-3
 
@@ -355,9 +411,11 @@ SERVE = {
     # decode past the window run on the card.
     "gemma2-27b": _serve(lambda cfg: {"flash_attention": _count(cfg, "attn")},
                          batch=1, prompts=(6144,), n_repeat=4),
-    # full width and depth (~62 GB of float32 weights); MLA + MoE
+    # full width; MLA + MoE.  The dense prologue and 13 of the 26 MoE
+    # layers (~31 GB of float32 weights; full depth, ~62 GB, served in
+    # 54-64 s, past this script's time): every layer kind still runs
     "deepseek-v2-lite-16b": _serve(lambda cfg: {
-        "flash_attention": _count(cfg, "mla")}),
+        "flash_attention": _count(cfg, "mla")}, n_repeat=13),
     # full width and depth; a prefill runs the 4 encoder layers over 1500
     # frames and each decoder layer's self- and cross-attention, a decode
     # step each decoder layer's cross-attention (S = 1 against 1500).  A
@@ -373,9 +431,10 @@ SERVE = {
     "llama-3.2-vision-11b": _serve(
         lambda cfg: {"flash_attention": cfg.n_layers},
         decode_counts=lambda cfg: {"flash_attention": _count(cfg, "xattn")}),
-    # full width and depth (~64 GB of float32 weights)
+    # full width; 20 of its 40 layers (~32 GB of float32 weights; full
+    # depth, ~64 GB, served in 22-27 s, past this script's time)
     "starcoder2-15b": _serve(lambda cfg: {
-        "flash_attention": _count(cfg, "attn")}),
+        "flash_attention": _count(cfg, "attn")}, n_repeat=20),
 }
 
 
@@ -498,20 +557,17 @@ def phase_build():
             if "spill" in line or ("ptxas info" in line and (
                     "registers" in line or "Compiling" in line)):
                 print(f"[build] {name}: {line.strip()}", flush=True)
-    # the D-192 flash forward instances (MLA's prefill) must not spill: ptxas
-    # prints an entry's spills on the line after its name
-    spills, entry = {}, None
-    for line in _build.logs.get("flash_attention", "").splitlines():
-        found = re.search(r"entry function '(\S*flash_fwd_\w+ILi192E\S*)'",
-                          line)
-        if found:
-            entry = found.group(1)
-        elif entry and "spill" in line:
-            spills[entry] = [int(n) for n in re.findall(
-                r"(\d+) bytes spill", line)]
-            entry = None
+    # the D-192 flash forward instances (MLA's prefill) must not spill; the
+    # backward's D-192 instances and the scans' backward kernels are
+    # reported.  ptxas prints an entry's spills on the line after its name
+    spills = _spills("flash_attention", r"flash_fwd_\w+ILi192E")
     say("build", seconds=round(secs, 3), libraries=sorted(libs),
-        built_now=sorted(_build.logs), d192_spill_bytes=spills)
+        built_now=sorted(_build.logs), d192_spill_bytes=spills,
+        d192_bwd_spill_bytes=_spills("flash_attention_bwd",
+                                     r"flash_bwd_\w+ILi192E"),
+        scan_bwd_spill_bytes={
+            **_spills("wkv6_scan_bwd", r"wkv6_bwd_kernel"),
+            **_spills("ssd_scan_bwd", r"ssd_bwd_kernel")})
     missing = sorted(set(KERNELS) - set(libs))
     if missing:
         raise RuntimeError(f"libraries missing after build: {missing}")
@@ -521,12 +577,28 @@ def phase_build():
                            f"were not reported): {spills}")
 
 
+def _spills(lib, pattern):
+    """{entry: [spill store bytes, spill load bytes]} of the entries of
+    ``lib`` (this run's build log) whose name matches ``pattern``."""
+    spills, entry = {}, None
+    for line in _build.logs.get(lib, "").splitlines():
+        found = re.search(r"entry function '(\S*" + pattern + r"\S*)'", line)
+        if found:
+            entry = found.group(1)
+        elif entry and "spill" in line:
+            spills[entry] = [int(n) for n in re.findall(
+                r"(\d+) bytes spill", line)]
+            entry = None
+    return spills
+
+
 def phase_sass():
     """Tensor-core instructions (HMMA, HGMMA) per kernel function of each
     built library, read from ``cuobjdump -sass``.  Every bf16 instance of
-    the four kernels must have some: their products run on the tensor
-    cores (5 flash forward and 4 flash backward head dims, 3 WKV head dims,
-    3 x 4 SSD P and N)."""
+    the flash forward and backward, WKV6 and SSD must have some: their
+    products run on the tensor cores (5 flash forward and 5 flash backward
+    head dims, 3 WKV head dims, 3 x 4 SSD P and N).  The scans' backward
+    kernels sum in fp32 on the CUDA cores and report 0."""
     nvcc = env.nvcc_path()
     tool = shutil.which("cuobjdump") or (
         os.path.join(os.path.dirname(nvcc), "cuobjdump") if nvcc else None)
@@ -550,10 +622,10 @@ def phase_sass():
             or "flash_bwd_bf16" in fn
             or ("wkv6_kernel" in fn and "bfloat16" in fn)
             or "ssd_tc_kernel" in fn]
-    if len(bf16) != 24 or not all(counts[fn] for fn in bf16):
+    if len(bf16) != 25 or not all(counts[fn] for fn in bf16):
         raise RuntimeError(f"bf16 flash forward / flash backward / WKV6 / "
                            f"SSD instances without tensor-core instructions "
-                           f"(or not 24 of them): {counts}")
+                           f"(or not 25 of them): {counts}")
 
 
 def phase_flash(dev):
@@ -639,6 +711,27 @@ def ssd_work(x, dt, A, Bm, Cm):
     return _bound(nbytes, B * H * flops)
 
 
+def wkv_bwd_work(r, k, v, w, u, dy):
+    """Bytes (r, k, v, dy read and dr, dk, dv written in r's dtype; w, u
+    read and dw, du written in float32; each once) and the backward's
+    state products (kernels/flops.scan_flops: 6 D x D a token and head)
+    at the tensor cores' bf16 peak, as for every kernel: the forward does
+    these products on mma.sync, so the scalar fp32 backward is held to
+    what the card could do, not to what it does."""
+    nbytes = 7 * r.numel() * r.element_size() + 2 * (w.numel() + u.numel()) * 4
+    return _bound(nbytes, kflops.scan_flops(r, r.shape[-1], backward=True))
+
+
+def ssd_bwd_work(x, dt, A, Bm, Cm, dy):
+    """Bytes (x, dy read and dx written in x's dtype; B, C read and dB, dC
+    written; dt, A read and ddt, dA written in float32; each once) and the
+    backward's state products (6 P x N a token and head) at the bf16
+    peak, as ``wkv_bwd_work``."""
+    nbytes = 3 * x.numel() * x.element_size() \
+        + 4 * Bm.numel() * Bm.element_size() + 2 * (dt.numel() + A.numel()) * 4
+    return _bound(nbytes, kflops.scan_flops(x, Bm.shape[-1], backward=True))
+
+
 def wkv_inputs(gen, dev, B, S, H, D, decay, dt):
     r, k, v = (torch.randn(B, S, H, D, generator=gen, device=dev).to(dt)
                for _ in range(3))
@@ -695,6 +788,52 @@ def phase_scan(dev, name, mod, plain, shapes, main, make, work):
                 measured_on=torch.cuda.get_device_name(0),
                 nvidia_smi=env.nvidia_smi_line(), kernel_ms=t["ms"],
                 **{key: val for key, val in t.items() if key != "ms"})
+    return errs, timing
+
+
+def phase_scan_backward(dev, name, fwd, bwd, plain, shapes, timed, make,
+                        work):
+    """One scan's backward kernel (``bwd``) against its plain version at
+    every shape, on an output gradient drawn in the inputs' dtype; the
+    autograd Function (``fwd`` under grad, then ``backward``) gives the
+    same gradients as the direct call.  Timed at ``timed`` beside the plain
+    version and the bound; no one PyTorch call computes it (library
+    None)."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    errs, timing = {}, {}
+    for shape, *dims, dt in shapes:
+        args = make(gen, dev, *dims, dt)
+        dy = torch.randn(args[0].shape, generator=gen, device=dev).to(dt)
+        got = bwd(*args, dy)
+        torch.cuda.synchronize()
+        want = plain(*args, dy, chunk=16)
+        rels = [_rel(a, b) for a, b in zip(got, want)]
+        xs = [a.detach().clone().requires_grad_() for a in args]
+        fwd(*xs).backward(dy)
+        same = all(torch.equal(x.grad, g) for x, g in zip(xs, got))
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, want))
+        ok = bool(all(torch.isfinite(g.float()).all() for g in got)
+                  and max(rels) < SCAN_REL[dt] and same)
+        errs[shape] = err
+        say("kernel_vs_plain", kernel=name, shape=shape, dims=dims,
+            dtype=str(dt).split(".")[-1], max_abs_err=err, rel_err=rels,
+            rel_tol=SCAN_REL[dt], autograd_equals_direct=same, ok=ok)
+        if not ok:
+            raise RuntimeError(f"{name} disagrees with its plain version at "
+                               f"{shape}: rel errs {rels}, autograd equal "
+                               f"{same}")
+        if shape in timed:
+            t = timing[shape] = {
+                "ms": device_ms(lambda: bwd(*args, dy)),
+                "plain_ms": device_ms(lambda: plain(*args, dy, chunk=16),
+                                      rounds=3, reps=3),
+                "library_ms": None,  # no one PyTorch call computes it
+                **work(*args, dy)}
+            t["kernel_over_bound"] = t["ms"] / t["bound_ms"]
+            say("kernel_time", kernel=name, shape=shape, kernel_ms=t["ms"],
+                **{key: val for key, val in t.items() if key != "ms"},
+                **_card())
     return errs, timing
 
 
@@ -839,6 +978,10 @@ SERVE_PROFILE_STEPS = 8
 # the copies and dtype casts (the float32 weights' casts to bf16)
 _GEMM = ("gemm", "nvjet", "xmma", "cutlass")
 _COPY = ("copy", "cast")
+# the scans' kernel functions (csrc/*.cu), forward and backward
+_SCAN_FWD = ("wkv6_kernel", "ssd_tc_kernel", "ssd_f32_kernel")
+_SCAN_BWD = ("wkv6_bwd_kernel", "ssd_bwd_kernel", "sum_rows_kernel",
+             "sum_mid_kernel")
 
 
 def _device_groups(fn):
@@ -1457,11 +1600,21 @@ BWD_SHAPES = [
     ("whisper_cross_128", 1, 128, 1500, 6, 6, 64, BF16, False, None, None),
     ("llama_vision_cross_128", 1, 128, 1600, 32, 8, 128, BF16, False, None,
      None),
+    # deepseek-v2-lite's MLA at D 192 (q/k at nope 128 + rope 64, v padded
+    # to 192): a train phase's microbatch (one row of 8 tokens), a 128-token
+    # microbatch of 8 rows, and the edges
+    ("deepseek_mla_bundles_8", 1, 8, 8, 16, 16, 192, BF16, True, None, None),
+    ("deepseek_mla_128", 8, 128, 128, 16, 16, 192, BF16, True, None, None),
+    ("D192_cross_S45_T83", 1, 45, 83, 4, 2, 192, BF16, False, None, None),
+    ("D192_window64_softcap30", 2, 300, 300, 4, 2, 192, BF16, True, 64,
+     30.0),
+    ("f32_D192_ragged", 2, 100, 100, 4, 2, 192, F32, True, None, None),
 ]
 BWD_MAIN = ("jag_train_128", "jag_bundles_8")
+BWD_D192 = ("deepseek_mla_bundles_8", "deepseek_mla_128")
 BWD_ENCDEC = ("whisper_enc_1500", "whisper_cross_128",
               "llama_vision_cross_128")
-BWD_TIMED = BWD_MAIN + ("zamba2_512", "D128_gqa") + BWD_ENCDEC
+BWD_TIMED = BWD_MAIN + ("zamba2_512", "D128_gqa") + BWD_ENCDEC + BWD_D192
 # max |kernel - plain| / max |plain| of dq, dk, dv: float32 sums in another
 # order; the bf16 kernel rounds P and dS to bf16 as operands and its outputs
 # once.  Against the mirror of those rounding points (bf16 only) the rest
@@ -1598,7 +1751,8 @@ def _train_launches(cfg, steps):
         raise RuntimeError(f"jag-surrogate's remat is {cfg.remat!r}")
     n = cfg.n_layers * max(1, cfg.microbatch) * steps
     return {"flash_attention": 2 * n, "flash_attention_bwd": n,
-            "wkv6_scan": 0, "ssd_scan": 0}
+            "wkv6_scan": 0, "ssd_scan": 0,
+            "wkv6_scan_bwd": 0, "ssd_scan_bwd": 0}
 
 
 def _train_run(label, args, tokens, want):
@@ -1661,12 +1815,24 @@ def profile_run(step_fn, state, batches, step_ms):
         if e.device_type != DeviceType.CUDA:
             continue
         n_events += 1
-        low = e.name.lower()
-        name = ("flash_fwd" if "flash_fwd" in low else
-                "flash_bwd" if "flash_bwd" in low else
-                "gemm" if any(f in low for f in _GEMM) else
-                "copy_cast" if any(f in low for f in _COPY) else "other")
+        name = _kernel_group(e.name)
         groups[name] = groups.get(name, 0.0) + e.time_range.elapsed_us()
+    return _busy(groups, n_events, n, step_ms)
+
+
+def _kernel_group(name):
+    low = name.lower()
+    return ("flash_fwd" if "flash_fwd" in low else
+            "flash_bwd" if "flash_bwd" in low else
+            "scan_bwd" if any(f in low for f in _SCAN_BWD) else
+            "scan_fwd" if any(f in low for f in _SCAN_FWD) else
+            "gemm" if any(f in low for f in _GEMM) else
+            "copy_cast" if any(f in low for f in _COPY) else "other")
+
+
+def _busy(groups, n_events, n, step_ms):
+    """The profile line's keys from the device µs summed by kernel group
+    over ``n`` steps."""
     if not n_events:
         return {"device_busy_ms_per_step": None, "idle_share": None}
     busy = sum(groups.values()) / 1e3 / n
@@ -1675,6 +1841,34 @@ def profile_run(step_fn, state, batches, step_ms):
                 k: v / 1e3 / n for k, v in sorted(groups.items())},
             "device_events_per_step": n_events / n,
             "step_ms": step_ms, "idle_share": 1.0 - busy / step_ms}
+
+
+def profile_run_trace(step_fn, state, batches, step_ms):
+    """``profile_run`` for steps of ~10^5 kernels run warm already (the
+    same shapes trained just before): every batch is profiled, CUDA
+    activity alone, the device events read from the exported trace
+    (JSON), not through the profiler's event tree, whose Python objects
+    take minutes to build for a zamba2 step."""
+    from torch.profiler import ProfilerActivity, profile
+    n = len(batches)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for b in batches:
+            state, m = step_fn(state, b)
+        float(m["loss"])
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    groups, n_events = {}, 0
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
+                                                   "gpu_memset"):
+            n_events += 1
+            name = _kernel_group(e.get("name", ""))
+            groups[name] = groups.get(name, 0.0) + float(e.get("dur", 0.0))
+    return _busy(groups, n_events, n, step_ms)
 
 
 def _write_study(data, root):
@@ -1770,9 +1964,9 @@ def phase_train(data, keep):
     return total
 
 
-ENCDEC_BUNDLE_STEPS = 30      # whisper-tiny on the quickstart's bundles
+ENCDEC_BUNDLE_STEPS = 20      # whisper-tiny on the quickstart's bundles
 ENCDEC_SYNTH_STEPS = 10       # ... and on synthetic tokens, batch 8 x 128
-ENCDEC_F32_STEPS = 10         # float32 compute, card against the CPU port
+ENCDEC_F32_STEPS = 5          # float32 compute, card against the CPU port
 ENCDEC_F32_BATCH = 1          # ... at batch 1 (a CPU step takes ~1.5 s)
 VISION_LAYERS = 5             # llama-vision: one xattn and four attn layers
 VISION_STEPS = 10
@@ -1793,12 +1987,13 @@ def _encdec_launches(cfg, steps):
                for spec in cfg.plan)
     return {"flash_attention": n_mb * (cfg.n_enc_layers + 2 * attn),
             "flash_attention_bwd": n_mb * (cfg.n_enc_layers + attn),
-            "wkv6_scan": 0, "ssd_scan": 0}
+            "wkv6_scan": 0, "ssd_scan": 0,
+            "wkv6_scan_bwd": 0, "ssd_scan_bwd": 0}
 
 
-def _loss_fell(label, history):
-    first = statistics.mean(h["loss"] for h in history[:10])
-    last = statistics.mean(h["loss"] for h in history[-10:])
+def _loss_fell(label, history, window=10):
+    first = statistics.mean(h["loss"] for h in history[:window])
+    last = statistics.mean(h["loss"] for h in history[-window:])
     if not last < first:
         raise RuntimeError(f"{label}: the loss did not fall ({first} -> "
                            f"{last})")
@@ -1894,7 +2089,7 @@ def phase_train_vision(dev):
     cfg = full.replace(n_repeat=1, n_layers=len(full.superblock))
     if cfg.n_layers != VISION_LAYERS:
         raise RuntimeError(f"llama-vision cut to {cfg.n_layers} layers")
-    opt = make_optimizer(cfg.optimizer, lr=3e-4)
+    opt = make_optimizer(cfg.optimizer, lr=3e-4, cfg=cfg)
     torch.cuda.reset_peak_memory_stats()
     state = init_state(torch.Generator(device=dev).manual_seed(0), cfg, opt)
     with torch.no_grad():
@@ -1933,6 +2128,178 @@ def phase_train_vision(dev):
     del state, step, batches
     _free()
     return launches
+
+
+# rwkv6-3b, zamba2-1.2b and deepseek-v2-lite-16b train through the scans'
+# and D-192 attention's backward kernels: (arch, superblock repeats or None
+# for full depth, batch).  zamba2's 16 microbatches need 16 rows; rwkv6 at
+# 16 of its 32 layers (the dry run predicts 55.7 GB at 8 x 128: `tools/
+# mesh_step_memory.py --arch rwkv6-3b --repeats 16 --batch 8 --predict 1`);
+# deepseek at its dense prologue and two MoE layers.
+SCAN_TRAIN = (("zamba2-1.2b", None, 16), ("rwkv6-3b", 16, 8),
+              ("deepseek-v2-lite-16b", 2, 8))
+# the float32 step against the CPU at full width and a cut depth (the CPU
+# step of the whole ~1.5 B parameters takes 25-40 s): zamba2 one
+# superblock after its prologue (10 layers), rwkv6 2 layers, deepseek its
+# prologue and one MoE layer
+SCAN_F32_REPEATS = {"zamba2-1.2b": 1, "rwkv6-3b": 2,
+                    "deepseek-v2-lite-16b": 1}
+SCAN_TRAIN_STEPS = 6          # on the quickstart's bundles: the loss falls
+SCAN_LOSS_WINDOW = 3          # ... from the first 3 steps' mean to the last 3's
+SCAN_PROFILE_STEPS = 1        # zamba2: ~139,000 kernels a step
+SCAN_F32_BATCH, SCAN_F32_SEQ = 2, 32  # one float32 step, card against CPU
+SCAN_F32_REL = 1e-4           # the loss and each parameter's gradient
+
+
+def _scan_train_launches(cfg, steps):
+    """Exact counts of a training run under remat="full": a microbatch runs
+    each layer's kernel forward twice (once more in the backward's
+    recompute; a prologue layer, outside remat, once) and its backward
+    kernel once."""
+    if cfg.remat != "full":
+        raise RuntimeError(f"{cfg.arch_id}'s remat is {cfg.remat!r}")
+    n = max(1, cfg.microbatch) * steps
+    n_pro = len(cfg.prologue)
+    want = {name: 0 for name in KERNELS}
+    for i, spec in enumerate(cfg.plan):
+        kernel = {"attn": "flash_attention", "mla": "flash_attention",
+                  "shared_attn": "flash_attention", "rwkv6": "wkv6_scan",
+                  "mamba2": "ssd_scan"}.get(spec.kind)
+        if kernel:
+            want[kernel] += n * (1 if i < n_pro else 2)
+            want[f"{kernel}_bwd"] += n
+    return want
+
+
+def _cut(cfg, repeats):
+    """``cfg`` at its prologue and ``repeats`` superblocks (None: whole)."""
+    if repeats is None:
+        return cfg
+    return cfg.replace(n_repeat=repeats, n_layers=len(cfg.prologue)
+                       + repeats * len(cfg.superblock))
+
+
+def _f32_grad_parity(cfg, dev):
+    """The forward and backward of one float32-compute train step (one
+    microbatch of SCAN_F32_BATCH x SCAN_F32_SEQ synthetic tokens through
+    the step's own ``trainstep._run_loss``) on the card and on the CPU
+    from the same weights (drawn on the card, copied to the CPU): the loss
+    and every parameter's gradient, leaf by leaf, as rel = |card - cpu| /
+    |cpu| (0 where both are 0).  MoE layers run the card's routes on the
+    CPU (``_routes``).  Returns (line, expected launches, worst rel)."""
+    from repro_torch.train.trainstep import _run_loss, named_params, to_device
+    cfg32 = cfg.replace(compute_dtype="float32", microbatch=1)
+    batch = SyntheticTokens(SCAN_F32_BATCH, SCAN_F32_SEQ,
+                            cfg.vocab_size).batch_at(0)
+    card = lm.init_params(cfg32, torch.Generator(device=dev).manual_seed(0),
+                          dev)
+    cpu = copy.deepcopy(card).cpu()
+    routes, out, grads = [], {}, {}
+    for where, model, ctx in (
+            ("cuda", card, lambda: _routes(record=routes)),
+            ("cpu", cpu, lambda: _routes(replay=[t.cpu() for t in routes]))):
+        params = named_params(model)
+        _zero_launches()
+        t0 = time.monotonic()
+        with ctx():
+            loss, _, gs = _run_loss(
+                model, to_device(batch, next(iter(params.values())).device),
+                cfg32, None, list(params.values()))
+            out[f"loss_{where}"] = float(loss.detach())
+        out[f"{where}_s"] = time.monotonic() - t0
+        out[f"{where}_launches"] = _launches()
+        grads[where] = dict(zip(params, (g.detach() for g in gs)))
+    del card, cpu
+    rels, sq = {}, {"cuda": 0.0, "cpu": 0.0}
+    for k, got in grads["cuda"].items():  # compared on the card
+        want = grads["cpu"][k].to(got.device)
+        diff = float(torch.linalg.vector_norm(got - want))
+        sq["cuda"] += float(torch.sum(torch.square(got)))
+        sq["cpu"] += float(torch.sum(torch.square(want)))
+        norm = float(torch.linalg.vector_norm(want))
+        rels[k] = diff / norm if norm else (0.0 if diff == 0 else math.inf)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads["cuda"].values())
+    del grads, got, want
+    _free()
+    worst = max(rels, key=rels.get)
+    loss_rel = abs(out["loss_cuda"] - out["loss_cpu"]) / abs(out["loss_cpu"])
+    out.update(loss_rel=loss_rel, grad_leaves=len(rels), worst_leaf=worst,
+               worst_leaf_rel=rels[worst], finite=finite,
+               grad_norm_card=math.sqrt(sq["cuda"]),
+               grad_norm_cpu=math.sqrt(sq["cpu"]))
+    return out, _scan_train_launches(cfg32, 1), max(loss_rel, rels[worst])
+
+
+def phase_train_scan_archs(dev, data):
+    """rwkv6-3b, zamba2-1.2b and deepseek-v2-lite-16b at full width
+    (SCAN_TRAIN's depths) through ``python -m repro_torch.launch.train`` on
+    the quickstart study's bundles (``data``), SCAN_TRAIN_STEPS steps each:
+    exact launch counts of every kernel forward and backward, the loss
+    falls, step wall and peak memory, and a torch.profiler reading of the
+    device's busy time; then one float32-compute step's loss and gradients
+    on the card against the CPU's (``_f32_grad_parity``).  Returns the
+    card runs' launches."""
+    from repro_torch.train.trainstep import init_state
+    total = {name: 0 for name in KERNELS}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = _write_study(data, os.path.join(tmp, "study"))
+        for arch, repeats, batch in SCAN_TRAIN:
+            t0 = time.monotonic()
+            cfg = _cut(registry.get_config(arch), repeats)
+            # no checkpoint: the state is 15-25 GB, whose save outlasts
+            # the steps (the jag and whisper phases test resuming)
+            args = ["--arch", arch, "--batch", str(batch), "--data", root,
+                    "--steps", str(SCAN_TRAIN_STEPS), "--ckpt-every", "0",
+                    "--workdir", os.path.join(tmp, arch)]
+            if repeats is not None:
+                args += ["--repeats", str(repeats)]
+            label = f"{arch}_bundles"
+            _, tr, launches = _train_run(
+                label, args, batch * RECORD_SEQ,
+                _scan_train_launches(cfg, SCAN_TRAIN_STEPS))
+            for name, k in launches.items():
+                total[name] += k
+            fell = _loss_fell(f"{arch} on bundles", tr.history,
+                              SCAN_LOSS_WINDOW)
+            dts = sorted(h["dt"] for h in tr.history[1:])
+            # the step's work does not depend on the weights: a fresh state
+            # drawn on the card, not the checkpoint read back through the CPU
+            state = init_state(torch.Generator(device=dev).manual_seed(0),
+                               tr.cfg, tr.optimizer)
+            batches = [next(tr.data) for _ in range(SCAN_PROFILE_STEPS)]
+            t1 = time.monotonic()
+            say("train_profile", run=label, layers=cfg.n_layers,
+                params=sum(p.numel() for p in lm.init_params(
+                    cfg, torch.Generator(), "meta").parameters()),
+                profiled_steps=SCAN_PROFILE_STEPS,
+                **profile_run_trace(tr.step_fn, state, batches,
+                                    1e3 * statistics.median(dts)), **_card())
+            del state, batches
+            walls = {"train_s": t1 - t0, "profile_s": time.monotonic() - t1}
+            del tr
+            _free()
+            cut32 = _cut(registry.get_config(arch), SCAN_F32_REPEATS[arch])
+            t1 = time.monotonic()
+            out, want, rel = _f32_grad_parity(cut32, dev)
+            walls["parity_s"] = time.monotonic() - t1
+            for name, k in out["cuda_launches"].items():
+                total[name] += k
+            ok = (rel < SCAN_F32_REL and out["cuda_launches"] == want
+                  and out["finite"] and not any(out["cpu_launches"].values()))
+            say("train_parity", arch=arch, layers=cut32.n_layers,
+                batch=SCAN_F32_BATCH, seq=SCAN_F32_SEQ, rel=rel,
+                rel_tol=SCAN_F32_REL, expected_launches=want,
+                kernel_launches=out.pop("cuda_launches"),
+                loss_fell_bundles=list(fell),
+                phase_s=time.monotonic() - t0, walls_s=walls,
+                **{k: v for k, v in out.items() if k != "cpu_launches"},
+                **_card())
+            if not ok:
+                raise RuntimeError(
+                    f"{arch}: the float32 step's loss or gradients on the "
+                    f"card and the CPU differ by rel {rel} (worst leaf "
+                    f"{out['worst_leaf']}; launches expected {want})")
+    return total
 
 
 # the dry run's check on the card: the caching allocator rounds each
@@ -2000,7 +2367,6 @@ def _dryrun_memory_flops(dev, mesh):
     and a second one under the dry run's ``LocalCounter`` (its FLOPs equal
     the meta count).  Returns the launch counts."""
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.kernels import flops as kflops
     from repro_torch.launch import dryrun
     from repro_torch.train.optimizer import make_optimizer
     from repro_torch.train.trainstep import (init_state, make_train_step,
@@ -2014,7 +2380,7 @@ def _dryrun_memory_flops(dev, mesh):
     dry_s = time.monotonic() - t0
     del cell
     _free()
-    opt = make_optimizer(cfg.optimizer, lr=3e-4)
+    opt = make_optimizer(cfg.optimizer, lr=3e-4, cfg=cfg)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     state = shard_state(init_state(torch.Generator(device=dev)
@@ -2117,7 +2483,8 @@ def _dryrun_serve_fns(dev, mesh):
         equal = len(seen) == len(fn_logits) and all(
             torch.equal(a, b) for a, b in zip(fn_logits, seen))
         want = {"flash_attention": _serve_flash(cfg, new),
-                "flash_attention_bwd": 0, "wkv6_scan": 0, "ssd_scan": 0}
+                "flash_attention_bwd": 0, "wkv6_scan": 0, "ssd_scan": 0,
+                "wkv6_scan_bwd": 0, "ssd_scan_bwd": 0}
         ok = (equal and fn_counts == want and eng_counts == want
               and tuple(out.shape) == (4, new)
               and all(bool(torch.isfinite(x).all()) for x in seen))
@@ -2156,7 +2523,8 @@ def _deepseek_mesh_eval(dev, mesh):
     rel = {k: abs(float(got[k]) - float(plain[k])) / abs(float(plain[k]))
            for k in ("loss", "moe_lb_loss", "moe_z_loss")}
     want = {"flash_attention": cfg.n_layers, "flash_attention_bwd": 0,
-            "wkv6_scan": 0, "ssd_scan": 0}
+            "wkv6_scan": 0, "ssd_scan": 0,
+            "wkv6_scan_bwd": 0, "ssd_scan_bwd": 0}
     ok = counts == want and max(rel.values()) <= DEEPSEEK_EVAL_REL
     say("mesh", check="deepseek_eval", arch=cfg.arch_id,
         layers=[s.kind + "/" + s.mlp for s in cfg.plan], mesh_shape=[1, 1],
@@ -2230,7 +2598,7 @@ def phase_mesh(dev, ckpt_root):
         mesh = init_device_mesh("cuda", (1, 1),
                                 mesh_dim_names=("data", "model"))
         cfg = registry.get_config("jag-surrogate")
-        opt = make_optimizer(cfg.optimizer, lr=3e-4)
+        opt = make_optimizer(cfg.optimizer, lr=3e-4, cfg=cfg)
         ckpt = CheckpointManager(ckpt_root)
         latest = ckpt.latest_step()
         batch = SyntheticTokens(8, 128, cfg.vocab_size).batch_at(latest)
@@ -2331,10 +2699,12 @@ def phase_mesh(dev, ckpt_root):
 
 SOURCES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:26",
-    # no TPU kernel: the gradient the reference takes with jax.grad of
+    # no TPU kernel: the gradients the reference takes with jax.grad of
     "flash_attention_bwd": "src/repro/kernels/ref.py:55",
     "wkv6_scan": "src/repro/kernels/wkv6_scan.py:18",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:21",
+    "wkv6_scan_bwd": "src/repro/kernels/ref.py:253",
+    "ssd_scan_bwd": "src/repro/kernels/ref.py:167",
 }
 
 
@@ -2371,6 +2741,17 @@ def main() -> int:
                                    work)
         timing[name] = t[main_[0]]
         main_shapes[name] = main_
+    for name, fwd, bwd, plain, shapes, timed, make, work in (
+            ("wkv6_scan_bwd", wkvk.wkv6_scan, wkvk.wkv6_scan_bwd,
+             ref.wkv6_scan_bwd_ref, WKV_BWD_SHAPES, WKV_BWD_TIMED,
+             wkv_inputs, wkv_bwd_work),
+            ("ssd_scan_bwd", ssdk.ssd_scan, ssdk.ssd_scan_bwd,
+             ref.ssd_scan_bwd_ref, SSD_BWD_SHAPES, SSD_BWD_TIMED,
+             ssd_inputs, ssd_bwd_work)):
+        errs[name], t = phase_scan_backward(dev, name, fwd, bwd, plain,
+                                            shapes, timed, make, work)
+        timing[name] = t[timed[0]]
+        main_shapes[name] = timed[:1]
     _free()
     mark("kernels")
     launches = {name: 0 for name in KERNELS}
@@ -2384,6 +2765,13 @@ def main() -> int:
     for name, n in phase_dryrun(dev).items():
         launches[name] += n
     mark("dryrun")
+    # the quickstart study's bundles, drawn on the CPU: the Merlin phases
+    # below keep CUDA graph pools that these models' steps do not fit beside
+    _, scan_data, _ = quickstart.run_study(torch.device("cpu"),
+                                           samples=MERLIN_SAMPLES)
+    for name, n in phase_train_scan_archs(dev, scan_data).items():
+        launches[name] += n
+    mark("train_scan_archs")
     phase_merlin(dev)
     data = phase_merlin_net(dev)
     phase_gateway(dev, data)

@@ -25,9 +25,13 @@ array) and returns the port's ``LM`` holding the same values:
     names.
 
 ``train_state_from_jax(state_np, cfg, device)`` takes the reference's
-``TrainState`` under AdamW as numpy and returns the port's, with AdamW's
-``m`` and ``v`` mapped through the same names as the parameters, so that
-both sides can start a training step from one state.
+``TrainState`` as numpy and returns the port's, so that both sides can
+start a training step from one state: under AdamW, ``m`` and ``v`` mapped
+through the same names as the parameters; under Adafactor, the factored
+moments as the port's Adafactor keys them (``train.optimizer``): the
+reference's stacked leaves keep their shapes under ``blocks.{i}.{leaf}``
+and ``encoder.blocks.{leaf}``, a prologue layer's under
+``layers.{j}.{leaf}``, the rest under the parameter's name.
 
 ``surrogate_from_jax(stacked, device)`` takes the reference's stacked
 deep-ensemble pytree as numpy, ``[{"w": (M, din, dout), "b": (M, dout)},
@@ -41,6 +45,7 @@ bundle cursor, so that both gateways answer from one model.
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Dict
 
 import numpy as np
@@ -120,11 +125,32 @@ def params_from_jax(tree, cfg: ModelConfig, device="cuda") -> lm.LM:
     return model
 
 
+def _adafactor_state(f_tree, names, cfg: ModelConfig, device):
+    """The reference's Adafactor moments (its ``f`` tree as numpy: each
+    parameter leaf a dict of ``vr``/``vc`` or ``v``) -> the port's ``f``."""
+    from repro_torch.train.optimizer import layout_of, stacked_groups
+    flat = _flatten({k: (dict(enumerate(v)) if isinstance(v, list) else v)
+                     for k, v in f_tree.items()})
+    f: Dict[str, Dict[str, torch.Tensor]] = {}
+    for name, leaf in flat.items():
+        key, _, moment = name.rpartition(".")
+        found = re.fullmatch(r"prologue\.(\d+)\.(.+)", key)
+        if found:
+            key = f"layers.{found.group(1)}.{found.group(2)}"
+        f.setdefault(key, {})[moment] = _tensor(leaf).to(device)
+    want = set(stacked_groups(list(names), layout_of(cfg)))
+    if set(f) != want:
+        raise ValueError(f"Adafactor leaves {sorted(set(f) ^ want)} do not "
+                         "match the parameters")
+    return f
+
+
 def train_state_from_jax(state_np, cfg: ModelConfig, device="cuda"):
-    """The reference's ``TrainState`` under AdamW as numpy, ``(params,
-    {"m": tree, "v": tree, "step": n}, step)``, -> the port's
-    ``train.trainstep.TrainState``: the model from ``params``, and ``m`` and
-    ``v`` keyed by the same parameter names, leaf for leaf."""
+    """The reference's ``TrainState`` as numpy, ``(params, opt, step)`` with
+    ``opt`` AdamW's ``{"m": tree, "v": tree, "step": n}`` or Adafactor's
+    ``{"f": tree, "step": n}``, -> the port's ``train.trainstep.TrainState``:
+    the model from ``params``, and the optimizer state keyed as the port's
+    optimizer keys it."""
     from repro_torch.train.trainstep import TrainState, named_params
     params, opt, step = state_np
     model = params_from_jax(params, cfg, device)
@@ -141,8 +167,12 @@ def train_state_from_jax(state_np, cfg: ModelConfig, device="cuda"):
         return torch.tensor(int(np.asarray(n)), dtype=torch.int32,
                             device=device)
 
-    new_opt = {"m": moments(opt["m"]), "v": moments(opt["v"]),
-               "step": int32(opt["step"])}
+    if "f" in opt:
+        new_opt = {"f": _adafactor_state(opt["f"], names, cfg, device),
+                   "step": int32(opt["step"])}
+    else:
+        new_opt = {"m": moments(opt["m"]), "v": moments(opt["v"]),
+                   "step": int32(opt["step"])}
     return TrainState(model, new_opt, int32(step))
 
 

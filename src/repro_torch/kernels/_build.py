@@ -18,8 +18,6 @@ import threading
 from pathlib import Path
 from typing import Callable, Dict, List
 
-import torch
-
 from repro_torch import env
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -108,20 +106,3 @@ def bind(name: str, entry: str, argtypes) -> Callable[..., None]:
             raise RuntimeError(f"{name} kernel launch failed: "
                                f"{err_str(rc).decode()} (cudaError {rc})")
     return launch
-
-
-def no_backward(kernel: str) -> RuntimeError:
-    """The error of a kernel that has no backward kernel yet."""
-    return RuntimeError(
-        f"{kernel}: the CUDA kernel has no backward yet, and an input "
-        "requires grad; run it under torch.no_grad() or "
-        "torch.inference_mode(), or on the CPU")
-
-
-def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
-    """The scan kernels compute the forward only: their output, written
-    through ctypes, carries no ``grad_fn``.  Raise rather than hand back a
-    result whose gradient would silently be lost.  (Flash attention has its
-    backward kernel and does not call this.)"""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise no_backward(kernel)

@@ -13,7 +13,7 @@
 //   dQ   = scale dS K      dK = scale dS^T Q
 // Options as the forward's for q_pos0 = 0 (training's case; the wrapper
 // refuses any other): causal or not, window, softcap, GQA (H a multiple of
-// KV), D in {16, 32, 64, 128}, float32 or bfloat16 in and out.  No atomics:
+// KV), D in {16, 32, 64, 128, 192}, float32 or bfloat16 in and out.  No atomics:
 // every output element is summed by one warp in a fixed order, so the
 // result does not depend on the order in which blocks run.
 //
@@ -21,9 +21,9 @@
 // fallback: no path retries another kernel after a failure):
 //
 // bf16 (dtype 1): two launches on the stream, on mma.sync.m16n8k16.
-//   1. flash_bwd_delta_kernel: D_i in fp32, 16-byte loads of O and dO, one
-//      thread a 16-byte chunk and a shuffle sum over a row's chunks; into
-//      the delta scratch (B, H, S).
+//   1. flash_bwd_delta_kernel: D_i in fp32, 16-byte loads of O and dO, a
+//      row's chunks over 2-16 neighbouring lanes (3 chunks a lane at D 192)
+//      and a shuffle sum; into the delta scratch (B, H, S).
 //   2. flash_bwd_bf16_kernel: one grid of two kinds of 4-warp block, the
 //      dK/dV blocks first (heaviest key tiles first), then the dQ blocks
 //      (heaviest query tiles first).  The two kinds share nothing but D_i,
@@ -53,6 +53,13 @@
 //        fragments stay in registers; the K/V tiles are double-buffered;
 //        S = Q K^T and dP = dO V^T per 16-key chunk, dS in registers as the
 //        A operand of dQ += dS K (K through ldmatrix.trans).
+//      * D 192 (MLA): a thread's dK and dV accumulators at full width
+//        would take 2 x 96 fp32 registers on top of the products', so each
+//        key tile gets two dK/dV blocks, one a half of the 192 columns (both
+//        recompute S^T and dP^T over the whole of D), and the dQ blocks read
+//        their Q and dO fragments from shared memory for each chunk instead
+//        of holding 2 x 48 in registers.  151 KB of shared memory a block:
+//        one block an SM.
 //      A chunk that is masked for all of a warp's rows is skipped, and a
 //      warp whose 16 rows (or keys) all lie past S (or T) skips its
 //      products, so a short sequence runs one warp's chunk, not 64-wide
@@ -66,7 +73,8 @@
 //   sums rounded once at the store.
 //
 // fp32 (dtype 0): scalar fp32 FMAs (flash_bwd_dq_f32_kernel, then
-//   flash_bwd_dkv_f32_kernel), the design of the first port: 128 threads as
+//   flash_bwd_dkv_f32_kernel; at D 192 the latter in two column halves, as
+//   the bf16 grid), the design of the first port: 128 threads as
 //   a 16 x 8 grid, 4 rows x 8 columns of a 64 x 64 score tile each, tiles
 //   staged in shared memory.  The dQ kernel also writes D_i.  TF32 would
 //   miss the fp32 bar (rel 1e-4), so fp32 stays off the tensor cores; it
@@ -106,6 +114,13 @@ constexpr int NW = NT / 32;   // bf16: warps per block, 16 rows each
 constexpr float LOG2E = 1.4426950408889634f;
 static_assert(BQ == BK, "the tiles share one thread layout");
 static_assert(NW * 16 == BQ, "the bf16 warps split a tile into 16-row slices");
+
+// dK/dV columns a block computes: all of D up to 128; at D 192 half, so
+// that a thread's dK and dV accumulators fit in registers (2 x 96 fp32 in
+// the bf16 layout at full width, 2 x 4 x 24 in the fp32 one).  Each half
+// recomputes the scores over the whole of D.
+template <int D>
+constexpr int kDkvCols = D > 128 ? D / 2 : D;
 
 struct Params {
   const void* q;
@@ -306,7 +321,9 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_f32_kernel(const Params p) {
 template <int D>
 __global__ void __launch_bounds__(NT, 1)
     flash_bwd_dkv_f32_kernel(const Params p) {
-  constexpr int DC = D / TX;
+  constexpr int DH = kDkvCols<D>;
+  constexpr int DC = DH / TX;
+  static_assert(DH % TX == 0, "dK/dV columns must split over the threads");
   extern __shared__ float smem[];
   float* Ks = smem;                    // BK x (D+1)
   float* Vs = Ks + BK * (D + 1);       // BK x (D+1)
@@ -319,7 +336,8 @@ __global__ void __launch_bounds__(NT, 1)
 
   const int tid = threadIdx.x;
   const int ty = tid / TX, tx = tid % TX;
-  const int k0 = blockIdx.x * BK;
+  const int k0 = (blockIdx.x / (D / DH)) * BK;
+  const int col0 = (blockIdx.x % (D / DH)) * DH;  // this block's columns
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
   const int g = p.H / p.KV;
@@ -334,7 +352,8 @@ __global__ void __launch_bounds__(NT, 1)
   load_rows<D>(Ks, kb, kv_row, k0, BK, p.T);
   load_rows<D>(Vs, vb, kv_row, k0, BK, p.T);
 
-  // this thread's cells of dK and dV: keys ty + TY a, columns tx + TX c
+  // this thread's cells of dK and dV: keys ty + TY a, columns col0 + tx +
+  // TX c
   float dk[RQ][DC], dv[RQ][DC];
 #pragma unroll
   for (int a = 0; a < RQ; ++a)
@@ -386,8 +405,8 @@ __global__ void __launch_bounds__(NT, 1)
         }
 #pragma unroll
         for (int c = 0; c < DC; ++c) {
-          const float qv = Qs[i * (D + 1) + tx + TX * c];
-          const float dov = dOs[i * (D + 1) + tx + TX * c];
+          const float qv = Qs[i * (D + 1) + col0 + tx + TX * c];
+          const float dov = dOs[i * (D + 1) + col0 + tx + TX * c];
 #pragma unroll
           for (int a = 0; a < RQ; ++a) {
             dv[a][c] = fmaf(pv[a], dov, dv[a][c]);
@@ -404,8 +423,8 @@ __global__ void __launch_bounds__(NT, 1)
     if (t >= p.T) continue;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
-      dkb[t * kv_row + tx + TX * c] = dk[a][c] * p.scale;
-      dvb[t * kv_row + tx + TX * c] = dv[a][c];
+      dkb[t * kv_row + col0 + tx + TX * c] = dk[a][c] * p.scale;
+      dvb[t * kv_row + col0 + tx + TX * c] = dv[a][c];
     }
   }
 }
@@ -416,35 +435,45 @@ __global__ void __launch_bounds__(NT, 1)
 
 using bf16 = __nv_bfloat16;
 
-// 1. D_i = sum_d dO_id O_id: one thread a 16-byte chunk of a row of the
-// (B, S, H) rows; the D / 8 chunks of a row are neighbouring lanes.
+// 1. D_i = sum_d dO_id O_id: a row's D / 8 16-byte chunks are taken by
+// kDeltaLanes<D> neighbouring lanes (a power of two, so a row lies within a
+// warp), each adding every kDeltaLanes-th chunk, then a shuffle sum; rows
+// of the (B, S, H) rows.
+template <int D>
+constexpr int kDeltaLanes = (D / 8) & -(D / 8);  // 2, 4, 8, 16; 8 at D 192
+
 template <int D>
 __global__ void __launch_bounds__(NT) flash_bwd_delta_kernel(const Params p) {
-  constexpr int CPR = D / 8;  // chunks a row: 2..16, a divisor of 32
+  constexpr int CPR = D / 8;  // chunks a row
+  constexpr int LPR = kDeltaLanes<D>;
+  static_assert(LPR <= 32 && CPR % LPR == 0, "a row's lanes within a warp");
   const long long rows = (long long)p.B * p.S * p.H;
   const long long i = (long long)blockIdx.x * NT + threadIdx.x;
-  const long long r = i / CPR;
+  const long long r = i / LPR;
   float acc = 0.f;
   if (r < rows) {
-    const long long off = r * D + (i % CPR) * 8;
-    const uint4 a = *reinterpret_cast<const uint4*>(
-        static_cast<const bf16*>(p.o) + off);
-    const uint4 c = *reinterpret_cast<const uint4*>(
-        static_cast<const bf16*>(p.dout) + off);
-    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
-    const __nv_bfloat162* c2 = reinterpret_cast<const __nv_bfloat162*>(&c);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 x = __bfloat1622float2(a2[e]);
-      const float2 y = __bfloat1622float2(c2[e]);
-      acc = fmaf(x.x, y.x, acc);
-      acc = fmaf(x.y, y.y, acc);
+    for (int c = (int)(i % LPR); c < CPR; c += LPR) {
+      const long long off = r * D + c * 8;
+      const uint4 a = *reinterpret_cast<const uint4*>(
+          static_cast<const bf16*>(p.o) + off);
+      const uint4 b = *reinterpret_cast<const uint4*>(
+          static_cast<const bf16*>(p.dout) + off);
+      const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+      const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 x = __bfloat1622float2(a2[e]);
+        const float2 y = __bfloat1622float2(b2[e]);
+        acc = fmaf(x.x, y.x, acc);
+        acc = fmaf(x.y, y.y, acc);
+      }
     }
   }
 #pragma unroll
-  for (int off = CPR / 2; off > 0; off /= 2)
+  for (int off = LPR / 2; off > 0; off /= 2)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (r < rows && i % CPR == 0) {  // r = (b S + s) H + h
+  if (r < rows && i % LPR == 0) {  // r = (b S + s) H + h
     const int h = (int)(r % p.H);
     const long long bs = r / p.H;
     const int s = (int)(bs % p.S), b = (int)(bs / p.S);
@@ -589,10 +618,11 @@ __device__ __forceinline__ void sum_parts(float (&acc)[NA][ND][4], float* red,
 // split) on; the parts meet in sum_parts.
 template <int D>
 __device__ __forceinline__ void dkv_block(const Params& p, int kt, int kvh,
-                                          int b, unsigned char* smem_raw) {
+                                          int b, int col0,
+                                          unsigned char* smem_raw) {
   constexpr int LD = D + 8;    // padded shared-memory row
   constexpr int KD = D / 16;   // k-steps over d
-  constexpr int ND = D / 8;    // n-tiles over d
+  constexpr int ND = kDkvCols<D> / 8;  // n-tiles of this block's columns
   constexpr bool kFragsInRegs = D <= 64;
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // BK x LD
   bf16* Vs = Ks + BK * LD;                       // BK x LD
@@ -726,7 +756,7 @@ __device__ __forceinline__ void dkv_block(const Params& p, int kt, int kvh,
       for (int np = 0; np < ND / 2; ++np) {
         uint32_t bt[4];
         const int off = (16 * c + ((lane / 8) % 2) * 8 + lane % 8) * LD +
-                        np * 16 + (lane / 16) * 8;
+                        col0 + np * 16 + (lane / 16) * 8;
         tc::ldsm_x4_trans(bt, dOt + off);
         tc::mma_bf16(dv[2 * np], pa, bt[0], bt[1]);
         tc::mma_bf16(dv[2 * np + 1], pa, bt[2], bt[3]);
@@ -742,9 +772,10 @@ __device__ __forceinline__ void dkv_block(const Params& p, int kt, int kvh,
     if (part > 0) return;
   }
 
-  store_rows<D>(static_cast<bf16*>(p.dk) + kv_off, dk, kv_row, kw, p.T,
-                p.scale);
-  store_rows<D>(static_cast<bf16*>(p.dv) + kv_off, dv, kv_row, kw, p.T, 1.f);
+  store_rows<kDkvCols<D>>(static_cast<bf16*>(p.dk) + kv_off + col0, dk,
+                          kv_row, kw, p.T, p.scale);
+  store_rows<kDkvCols<D>>(static_cast<bf16*>(p.dv) + kv_off + col0, dv,
+                          kv_row, kw, p.T, 1.f);
 }
 
 // 2b. dQ: one block a (b, head, tile of 16 x 4 / split queries), its warps
@@ -802,7 +833,10 @@ __device__ __forceinline__ void dq_block(const Params& p, int qt, int h,
     lse2[i] = s < p.S ? p.lse[row_off + s] * LOG2E : 0.f;
     dl[i] = s < p.S ? p.delta[row_off + s] : 0.f;
   }
-  uint32_t qf[KD][4], of[KD][4];
+  // Q / dO fragments stay in registers up to D 128; at D 192 they are read
+  // from shared memory for each chunk, which keeps the accumulators there
+  constexpr bool kFragsInRegs = D <= 128;
+  uint32_t qf[kFragsInRegs ? KD : 1][4], of[kFragsInRegs ? KD : 1][4];
   float accs[1][ND][4];
   float(&acc)[ND][4] = accs[0];
 #pragma unroll
@@ -821,12 +855,15 @@ __device__ __forceinline__ void dq_block(const Params& p, int qt, int h,
       tc::cp_async_commit();
     }
     if (!live) continue;
-    if (j == 0) {
+    if constexpr (kFragsInRegs) {
+      if (j == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        const int off = (16 * slice + lane % 16) * LD + kk * 16 + (lane / 16) * 8;
-        tc::ldsm_x4(qf[kk], Qs + off);
-        tc::ldsm_x4(of[kk], dOs + off);
+        for (int kk = 0; kk < KD; ++kk) {
+          const int off =
+              (16 * slice + lane % 16) * LD + kk * 16 + (lane / 16) * 8;
+          tc::ldsm_x4(qf[kk], Qs + off);
+          tc::ldsm_x4(of[kk], dOs + off);
+        }
       }
     }
     const bf16* Kt = Ks + (j & 1) * BK * LD;
@@ -847,10 +884,22 @@ __device__ __forceinline__ void dq_block(const Params& p, int qt, int h,
                         ((lane / 8) % 2) * 8;
         tc::ldsm_x4(bk, Kt + off);
         tc::ldsm_x4(bv, Vt + off);
-        tc::mma_bf16(s[0], qf[kk], bk[0], bk[1]);
-        tc::mma_bf16(s[1], qf[kk], bk[2], bk[3]);
-        tc::mma_bf16(dp[0], of[kk], bv[0], bv[1]);
-        tc::mma_bf16(dp[1], of[kk], bv[2], bv[3]);
+        if constexpr (kFragsInRegs) {
+          tc::mma_bf16(s[0], qf[kk], bk[0], bk[1]);
+          tc::mma_bf16(s[1], qf[kk], bk[2], bk[3]);
+          tc::mma_bf16(dp[0], of[kk], bv[0], bv[1]);
+          tc::mma_bf16(dp[1], of[kk], bv[2], bv[3]);
+        } else {  // D 192: Q and dO fragments from shared memory
+          uint32_t a[4];
+          const int aoff =
+              (16 * slice + lane % 16) * LD + kk * 16 + (lane / 16) * 8;
+          tc::ldsm_x4(a, Qs + aoff);
+          tc::mma_bf16(s[0], a, bk[0], bk[1]);
+          tc::mma_bf16(s[1], a, bk[2], bk[3]);
+          tc::ldsm_x4(a, dOs + aoff);
+          tc::mma_bf16(dp[0], a, bv[0], bv[1]);
+          tc::mma_bf16(dp[1], a, bv[2], bv[3]);
+        }
       }
       // rows are queries, columns keys: lse and D_i by row
       const bool masked = kc + 16 > p.T || qw + 16 > p.S ||
@@ -884,13 +933,15 @@ __device__ __forceinline__ void dq_block(const Params& p, int qt, int h,
 }
 
 // Blocks an SM holds (registers bound it: ptxas fits D <= 64 in 168 a
-// thread without spills, D 128 needs ~246).
+// thread without spills, D 128 needs ~246; at D 192 shared memory, 151 KB a
+// block, leaves one).
 template <int D>
-constexpr int kMinBlocks = D <= 64 ? 3 : 2;
+constexpr int kMinBlocks = D <= 64 ? 3 : D <= 128 ? 2 : 1;
 
 // 2. One grid: n_dkv dK/dV blocks (key tile slowest, so under causal the
-// key tiles that see the most queries start first), then the dQ blocks
-// (under causal the last query tiles first).
+// key tiles that see the most queries start first; at D 192 two blocks a
+// tile, one a half of the columns), then the dQ blocks (under causal the
+// last query tiles first).
 template <int D>
 __global__ void __launch_bounds__(NT, kMinBlocks<D>)
     flash_bwd_bf16_kernel(const Params p) {
@@ -899,10 +950,14 @@ __global__ void __launch_bounds__(NT, kMinBlocks<D>)
   const int rows = 16 * (NW / p.split);  // keys or queries a block
   const int nk = (p.T + rows - 1) / rows;
   const int nq = (p.S + rows - 1) / rows;
-  const int n_dkv = nk * p.KV * p.B;
+  constexpr int halves = D / kDkvCols<D>;  // column blocks of dK/dV
+  const int n_dkv = nk * p.KV * p.B * halves;
   int i = blockIdx.x;
   if (i < n_dkv) {
-    dkv_block<D>(p, i / (p.KV * p.B), i % p.KV, (i / p.KV) % p.B, smem_raw);
+    const int col0 = (i % halves) * kDkvCols<D>;
+    i /= halves;
+    dkv_block<D>(p, i / (p.KV * p.B), i % p.KV, (i / p.KV) % p.B, col0,
+                 smem_raw);
   } else {
     i -= n_dkv;
     const int rank = i / (p.H * p.B);
@@ -933,19 +988,21 @@ cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
                                 dim3(nq, p.H, p.B), p, stream);
   if (err != cudaSuccess) return err;
   return launch_with(flash_bwd_dkv_f32_kernel<D>, dkv_smem_bytes<D>(),
-                     dim3(nk, p.KV, p.B), p, stream);
+                     dim3(nk * (D / kDkvCols<D>), p.KV, p.B), p, stream);
 }
 
 // Blocks of the bf16 grid when `split` warps share each 16-row slice.
+template <int D>
 long long bf16_blocks(const Params& p, int split) {
   const int rows = 16 * (NW / split);
-  return (long long)((p.T + rows - 1) / rows) * p.KV * p.B +
+  return (long long)((p.T + rows - 1) / rows) * p.KV * p.B *
+             (D / kDkvCols<D>) +
          (long long)((p.S + rows - 1) / rows) * p.H * p.B;
 }
 
 template <int D>
 cudaError_t launch_bf16(Params p, cudaStream_t stream) {
-  const long long chunks = (long long)p.B * p.S * p.H * (D / 8);
+  const long long chunks = (long long)p.B * p.S * p.H * kDeltaLanes<D>;
   cudaError_t err = launch_with(flash_bwd_delta_kernel<D>, 0,
                                 dim3((unsigned)((chunks + NT - 1) / NT)), p,
                                 stream);
@@ -964,11 +1021,11 @@ cudaError_t launch_bf16(Params p, cudaStream_t stream) {
   const long long slots = (long long)sms * kMinBlocks<D>;
   p.split = 1;
   for (int split = 2; split <= NW; split *= 2)
-    if (bf16_blocks(p, split) <= slots &&
-        bf16_blocks(p, split) > bf16_blocks(p, split / 2))
+    if (bf16_blocks<D>(p, split) <= slots &&
+        bf16_blocks<D>(p, split) > bf16_blocks<D>(p, split / 2))
       p.split = split;
   return launch_with(flash_bwd_bf16_kernel<D>, bf16_smem_bytes<D>(),
-                     dim3((unsigned)bf16_blocks(p, p.split)), p, stream);
+                     dim3((unsigned)bf16_blocks<D>(p, p.split)), p, stream);
 }
 
 template <int D>
@@ -1011,6 +1068,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
     case 32: err = launch<32>(p, dtype, st); break;
     case 64: err = launch<64>(p, dtype, st); break;
     case 128: err = launch<128>(p, dtype, st); break;
+    case 192: err = launch<192>(p, dtype, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

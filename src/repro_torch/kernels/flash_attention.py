@@ -19,11 +19,9 @@ The backward takes ``q_pos0 = 0`` only, which training always passes, and
 raises on anything else; nothing is sent to a plain version.  Without grad
 the forward is one launch that stores no log-sum-exp, as serving runs it.
 
-Head dims.  The forward takes ``HEAD_DIMS`` (192 is MLA's prefill: q/k at
-qk_nope 128 + qk_rope 64, v zero-padded to it); the backward takes
-``BWD_HEAD_DIMS``, so a D-192 call under grad, ``flash_attention_lse`` or
-``flash_attention_bwd`` on a CUDA tensor raises ``ValueError`` before any
-launch.
+Head dims.  The forward and the backward take ``HEAD_DIMS`` (192 is MLA:
+q/k at qk_nope 128 + qk_rope 64, v zero-padded to it; the backward splits
+its dK/dV columns in two blocks there, see the kernel's notes).
 
 ``flash_attention_lse`` and ``flash_attention_bwd`` launch the two kernels
 alone (the card tests and ``chip_smoke.py`` hold them to their plain
@@ -45,7 +43,6 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels.flops import count, flash_flops
 
 HEAD_DIMS = (16, 32, 64, 128, 192)
-BWD_HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
@@ -107,13 +104,8 @@ def check_args(q, k, v, *, softcap_val=None, window=None, q_pos0=0):
 
 def check_backward_args(q, k, *, window=None, q_pos0=0):
     """Raise ValueError on what the backward kernel does not take, on top
-    of ``check_args``: a head dim outside ``BWD_HEAD_DIMS``, an offset query
-    block, and a row that sees no key (non-causal or causal with a window,
-    S >= T + window)."""
-    if q.shape[-1] not in BWD_HEAD_DIMS:
-        raise ValueError(f"head dim {q.shape[-1]} has no backward kernel; the "
-                         f"backward takes {BWD_HEAD_DIMS} (run D "
-                         f"{q.shape[-1]} under torch.no_grad() to serve)")
+    of ``check_args``: an offset query block, and a row that sees no key
+    (non-causal or causal with a window, S >= T + window)."""
     if q_pos0 != 0:
         raise ValueError(f"the backward kernel takes q_pos0 = 0, got {q_pos0}")
     S, T = q.shape[1], k.shape[1]

@@ -68,7 +68,11 @@ def flash_flops(q, k, v, causal, window, q_pos0, backward=False) -> float:
     return 2.0 * B * H * pairs * per
 
 
-def scan_flops(x, n) -> float:
-    """Two (D x n) state products a token and head (update, read-out)."""
+def scan_flops(x, n, backward=False) -> float:
+    """Multiply-adds x 2 of the (D x n) state products a token and head:
+    forward, the update and the read-out; backward, the recomputed state,
+    the gradient state's update, and the four products that read the state
+    or the gradient state (WKV6: dr, dk, dv, dw; SSD: dC, dx, dB and the
+    decay's <Gh, h>)."""
     B, S, H, D = x.shape
-    return 4.0 * B * S * H * D * n
+    return 2.0 * (6 if backward else 2) * B * S * H * D * n

@@ -11,9 +11,10 @@ Dispatch policy (``use_pallas``, the reference's field name):
 
 Gradients.  On a CPU tensor the plain versions are differentiated by
 autograd, as the reference differentiates its plain path.  On a CUDA tensor
-``flash_attention`` under grad goes through the wrapper's autograd Function
-(the forward kernel with its row log-sum-exp, then the backward kernel);
-``wkv6_scan`` and ``ssd_scan`` have no backward kernel yet and raise there.
+each kernel under grad goes through its wrapper's autograd Function:
+``flash_attention`` the forward kernel with its row log-sum-exp, then the
+backward kernel; ``wkv6_scan`` and ``ssd_scan`` the forward kernel, saving
+their inputs, then the backward kernel, which recomputes the states.
 
 DTensors (a step under a mesh) reach the kernels as each rank's local
 batch rows and heads, through ``parallel.sharding.run_local``
@@ -32,8 +33,9 @@ need (valid query-key pairs, not padded tiles) through ``flops.count``, the
 same number for the kernel and its plain version, and the plain version
 runs with the counter's dispatch modes suspended; on a meta or CPU
 tensor under grad flash then goes through :class:`_PlainFlashFn`, which
-saves what the kernel's autograd Function saves (q, k, v, out, lse), so
-that a dry run counts and holds what the card's step does.
+saves what the kernel's autograd Function saves (q, k, v, out, lse), and
+the scans through :class:`_PlainScanFn` (their inputs), so that a dry run
+counts and holds what the card's step does.
 
 The scans pad a ragged S to a multiple of ``chunk`` as the reference does
 (zeros; w with 1.0, whose log-decay 0 makes the padding inert) and slice the
@@ -88,6 +90,43 @@ class _PlainFlashFn(torch.autograd.Function):
         dq, dk, dv = uncounted(ref.flash_attention_bwd_ref, q, k, v, out,
                                dout, lse, **kw)
         return dq, dk, dv, None
+
+
+class _PlainScanFn(torch.autograd.Function):
+    """A scan's plain forward (``fwd``) and plain backward (``bwd``) as one
+    autograd Function saving what the kernel's Function saves (the
+    inputs), its backward counted as the kernel's is and holding what the
+    kernel's call holds: its outputs (one a input, in the input's dtype)
+    and ``scratch(*args)``, allocated where the counter sees them (the
+    plain backward's own tensors it does not).  The dry run's path.
+    ``name`` is the backward kernel's, ``n`` the state's second dim."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, scratch, name, n, *args):
+        ctx.save_for_backward(*args)
+        ctx.bwd, ctx.scratch, ctx.name, ctx.n = bwd, scratch, name, n
+        return uncounted(fwd, *args)
+
+    @staticmethod
+    def backward(ctx, dy):
+        args = ctx.saved_tensors
+        count(ctx.name, scan_flops, args[0], ctx.n, backward=True)
+        outs = [torch.empty_like(a) for a in args]
+        held = ctx.scratch(*args)
+        grads = uncounted(ctx.bwd, *args, dy.to(args[0].dtype))
+        uncounted(lambda: [o.copy_(g) for o, g in zip(outs, grads)])
+        del held
+        return (None, None, None, None, None, *outs)
+
+
+def _plain_scan(fwd, bwd, scratch, name, n, *args):
+    """A scan's plain version: under a counter and grad through
+    :class:`_PlainScanFn`, else ``fwd`` itself (autograd differentiates it
+    on the CPU)."""
+    if counting_active() and torch.is_grad_enabled() and any(
+            t.requires_grad for t in args):
+        return _PlainScanFn.apply(fwd, bwd, scratch, name, n, *args)
+    return uncounted(fwd, *args)
 
 
 def _flash_local(q, k, v, use_pallas, kw):
@@ -244,7 +283,10 @@ def _ssd_scan(x, dt, A, B_, C, *, chunk, use_pallas):
                           A.float().contiguous(), B_.contiguous(),
                           C.contiguous(), chunk=chunk)
     else:
-        y = uncounted(ref.ssd_chunked_ref, x, dt, A, B_, C, chunk=chunk)
+        y = _plain_scan(
+            lambda *a: ref.ssd_chunked_ref(*a, chunk=chunk),
+            lambda *a: ref.ssd_scan_bwd_ref(*a, chunk=chunk),
+            lambda x, dt, A, B_, C: ssdk.bwd_scratch(x, B_), "ssd_scan_bwd", B_.shape[-1], x, dt, A, B_, C)
     return y[:, :S]
 
 
@@ -287,10 +329,17 @@ def _wkv6_scan(r, k, v, w, u, *, chunk, use_pallas, impl, subchunk):
         sub = min(subchunk, chunk)
         while chunk % sub:  # snap to a divisor of the chunk
             sub -= 1
-        y = uncounted(ref.wkv6_blocked_ref, r, k, v, w, u, chunk=chunk,
-                       subchunk=sub)
+        y = _plain_scan(
+            lambda *a: ref.wkv6_blocked_ref(*a, chunk=chunk, subchunk=sub),
+            lambda *a: ref.wkv6_scan_bwd_ref(*a, chunk=chunk),
+            lambda r, *_: wkvk.bwd_scratch(r), "wkv6_scan_bwd", r.shape[-1],
+            r, k, v, w, u)
     else:
-        y = uncounted(ref.wkv6_chunked_ref, r, k, v, w, u, chunk=chunk)
+        y = _plain_scan(
+            lambda *a: ref.wkv6_chunked_ref(*a, chunk=chunk),
+            lambda *a: ref.wkv6_scan_bwd_ref(*a, chunk=chunk),
+            lambda r, *_: wkvk.bwd_scratch(r), "wkv6_scan_bwd", r.shape[-1],
+            r, k, v, w, u)
     return y[:, :S]
 
 

@@ -26,7 +26,10 @@ factored form with the reference's bf16 casts and clamps (the CPU path of
 16-row chunks and split bf16 products, ``ssd_subtile_ref`` the SSD kernel's
 64-row tiles and split products; the ``*_decode_ref`` functions are one
 decode step, plain on every device as in the reference.  The three mirrors
-are for tests only: no served path calls them.
+are for tests only: no served path calls them.  ``wkv6_scan_bwd_ref`` and
+``ssd_scan_bwd_ref`` are the plain versions of the scans' backward kernels:
+the gradients written out chunk by chunk, with no autograd (tests, the card's
+yardstick, and the dry run's counted backward).
 """
 from __future__ import annotations
 
@@ -350,6 +353,80 @@ def ssd_subtile_ref(x, dt, A, B_, C, *, tile=64):
     return torch.cat(ys, dim=1).to(x.dtype)
 
 
+def _pad_time(t, S, value=0.0):
+    """``t`` in float32, padded along axis 1 to S."""
+    t = t.float()
+    pad = S - t.shape[1]
+    if not pad:
+        return t
+    return torch.cat([t, t.new_full((t.shape[0], pad, *t.shape[2:]), value)],
+                     dim=1)
+
+
+def _exit_grads(Q, decay):
+    """The gradient with respect to the state leaving each chunk, from the
+    last chunk back: g_{nc-1} = 0, g_{c-1} = Q_c + decay_c g_c (Q_c: the
+    gradient a chunk's own outputs put on the state entering it)."""
+    g = torch.zeros_like(Q[:, 0])
+    out = []
+    for c in reversed(range(Q.shape[1])):
+        out.append(g)
+        g = Q[:, c] + decay[:, c] * g
+    return torch.stack(out[::-1], dim=1)
+
+
+def ssd_scan_bwd_ref(x, dt, A, B_, C, dy, *, chunk=64):
+    """(dx, ddt, dA, dB, dC) of ``ssd_scan_ref``: the plain version of the
+    backward kernel, chunk by chunk, no autograd.  Per chunk (acs the
+    inclusive cumsum of A dt) the states h_t and h_{t-1} and the state
+    gradients Gh_t = sum_{tau >= t} exp(acs_tau - acs_t) dy_tau C_tau^T +
+    exp(acs_last - acs_t) g (g from the later chunks) are written out:
+    dx = dt Gh B, dB = sum_h dt Gh^T x, dC = sum_h h^T dy, ddt = x.Gh B +
+    A a <Gh, h_{t-1}>, dA = sum dt a <Gh, h_{t-1}>.  Any S (padded inside
+    with x = dt = 0, inert).  dx in x's dtype, dB and dC in B_'s."""
+    Bb, S, H, P = x.shape
+    N = B_.shape[-1]
+    L = min(chunk, S)
+    Sp = -(-S // L) * L
+    nc = Sp // L
+    xf, yf = (_pad_time(t, Sp).reshape(Bb, nc, L, H, P) for t in (x, dy))
+    dtf = _pad_time(dt, Sp).reshape(Bb, nc, L, H)
+    Bf, Cf = (_pad_time(t, Sp).reshape(Bb, nc, L, N) for t in (B_, C))
+    Af = A.float()
+    a = Af * dtf
+    acs = torch.cumsum(a, dim=2)
+    tail = torch.exp(acs[:, :, -1:] - acs)
+    G = torch.einsum("bcsh,bcshp,bcsn->bchpn", tail * dtf, xf, Bf)
+    chunk_decay = torch.exp(acs[:, :, -1])[..., None, None]  # (B,nc,H,1,1)
+    h_in = _states_entering(G, chunk_decay)
+    Q = torch.einsum("bcth,bcthp,bctn->bchpn", torch.exp(acs), yf, Cf)
+    g_out = _exit_grads(Q, chunk_decay)
+    incl = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+    outs = []
+    for c in range(nc):
+        ac = acs[:, c]  # (B,L,H)
+        E = torch.exp(torch.where(incl[None, :, :, None],
+                                  ac[:, :, None] - ac[:, None], -torch.inf))
+        xc, yc, dc, bc, cc = xf[:, c], yf[:, c], dtf[:, c], Bf[:, c], Cf[:, c]
+        h = torch.exp(ac)[..., None, None] * h_in[:, c, None] + torch.einsum(
+            "btsh,bsh,bshp,bsn->bthpn", E, dc, xc, bc)
+        h_prev = torch.cat([h_in[:, c, None], h[:, :-1]], dim=1)
+        gh = torch.einsum("bxth,bxhp,bxn->bthpn", E, yc, cc) + torch.exp(
+            ac[:, -1:] - ac)[..., None, None] * g_out[:, c, None]
+        q1 = torch.einsum("bthpn,btn->bthp", gh, bc)
+        q2 = (gh * h_prev).sum((-1, -2))  # (B,L,H)
+        decay = torch.exp(a[:, c])
+        outs.append((dc[..., None] * q1,
+                     (xc * q1).sum(-1) + Af * decay * q2,
+                     (dc * decay * q2).sum((0, 1)),
+                     torch.einsum("bthpn,bth,bthp->btn", gh, dc, xc),
+                     torch.einsum("bthpn,bthp->btn", h, yc)))
+    dx, ddt, dA, dB, dC = zip(*outs)
+    return (torch.cat(dx, 1)[:, :S].to(x.dtype), torch.cat(ddt, 1)[:, :S],
+            sum(dA), torch.cat(dB, 1)[:, :S].to(B_.dtype),
+            torch.cat(dC, 1)[:, :S].to(C.dtype))
+
+
 def ssd_decode_ref(h, x, dt, A, B_, C):
     """One decode step. h: (B,H,P,N); x: (B,H,P); dt: (B,H); B_,C: (B,N)."""
     decay = torch.exp(A.float()[None, :, None, None] * dt[:, :, None, None])
@@ -423,6 +500,62 @@ def wkv6_chunked_ref(r, k, v, w, u, *, chunk=64):
 
     y = (y_intra + y_bonus + y_inter).reshape(Bb, S, H, D)
     return y.to(r.dtype)
+
+
+def wkv6_scan_bwd_ref(r, k, v, w, u, dy, *, chunk=64):
+    """(dr, dk, dv, dw, du) of ``wkv6_chunked_ref``: the plain version of the
+    backward kernel, chunk by chunk, no autograd.  Per chunk (cl / ecl the
+    inclusive / exclusive cumsums of lw = log clip(w, 1e-12, 1)) the states
+    S_t entering each step and the state gradients G_{t+1} = sum_{tau > t}
+    exp(ecl_tau - cl_t) r_tau dy_tau^T + exp(cl_last - cl_t) g (g from the
+    later chunks) are written out: dr = S dy + u k (v.dy), dk = G v + r u
+    (v.dy), dv = G^T k + (r.u.k) dy, dw = sum_e G S where w lies in [1e-12,
+    1] (torch.clamp's gradient), du = sum r k (v.dy).  dw is read off the
+    states, never divided by a decay.  Any S (padded inside with r = k = v
+    = 0 and w = 1, inert).  dr, dk, dv in r's dtype; dw, du float32."""
+    Bb, S, H, D = r.shape
+    L = min(chunk, S)
+    Sp = -(-S // L) * L
+    nc = Sp // L
+    rf, kf, vf, yf = (_pad_time(t, Sp).reshape(Bb, nc, L, H, D)
+                      for t in (r, k, v, dy))
+    wf = _pad_time(w, Sp, 1.0).reshape(Bb, nc, L, H, D)
+    inside = (wf >= 1e-12) & (wf <= 1.0)
+    lw = _log_decay(wf)
+    uf = u.float()
+    cl = torch.cumsum(lw, dim=2)
+    ecl = cl - lw
+    tailw = torch.exp(cl[:, :, -1:] - cl)
+    G = torch.einsum("bcshd,bcshe->bchde", tailw * kf, vf)
+    chunk_decay = torch.exp(cl[:, :, -1])[..., None]  # (B,nc,H,D,1)
+    h_in = _states_entering(G, chunk_decay)
+    Q = torch.einsum("bcthd,bcthe->bchde", rf * torch.exp(ecl), yf)
+    g_out = _exit_grads(Q, chunk_decay)
+    vy = (vf * yf).sum(-1, keepdim=True)  # (B,nc,L,H,1)
+    ruk = (rf * uf * kf).sum(-1, keepdim=True)
+    before = torch.tril(torch.ones((L, L), dtype=torch.bool,
+                                   device=r.device), diagonal=-1)
+    outs = []
+    for c in range(nc):
+        e, l = ecl[:, c], cl[:, c]  # (B,L,H,D)
+        E = torch.exp(torch.where(before[None, :, :, None, None],
+                                  e[:, :, None] - l[:, None], -torch.inf))
+        rc, kc, vc, yc = rf[:, c], kf[:, c], vf[:, c], yf[:, c]
+        st = torch.exp(e)[..., None] * h_in[:, c, None] + torch.einsum(
+            "btshd,bshd,bshe->bthde", E, kc, vc)
+        gt = torch.einsum("bxthd,bxhd,bxhe->bthde", E, rc, yc) + torch.exp(
+            l[:, -1:] - l)[..., None] * g_out[:, c, None]
+        outs.append((torch.einsum("bthde,bthe->bthd", st, yc)
+                     + uf * kc * vy[:, c],
+                     torch.einsum("bthde,bthe->bthd", gt, vc)
+                     + rc * uf * vy[:, c],
+                     torch.einsum("bthde,bthd->bthe", gt, kc)
+                     + ruk[:, c] * yc,
+                     torch.where(inside[:, c], (gt * st).sum(-1), 0.0),
+                     (rc * kc * vy[:, c]).sum((0, 1))))
+    dr, dk, dv, dw, du = zip(*outs)
+    return tuple(torch.cat(t, 1)[:, :S].to(r.dtype) for t in (dr, dk, dv)) \
+        + (torch.cat(dw, 1)[:, :S], sum(du))
 
 
 def _split_einsum(eq, a, b, dtype):

@@ -1,5 +1,6 @@
-"""Wrapper of the CUDA Mamba2 SSD scan kernel (``csrc/ssd_scan.cu``), the port
-of ``repro/kernels/ssd_scan.py``.
+"""Wrapper of the CUDA Mamba2 SSD scan kernels: the forward
+(``csrc/ssd_scan.cu``, the port of ``repro/kernels/ssd_scan.py``) and its
+backward (``csrc/ssd_scan_bwd.cu``).
 
 Same signature as the Pallas kernel: x (B,S,H,P), dt (B,S,H), A (H,), B_ and
 C (B,S,N) -> y (B,S,H,P) in x's dtype.  x, B_, C are float32 or bfloat16 (one
@@ -7,23 +8,36 @@ dtype); dt and A float32.  On a CUDA tensor it launches the kernel on the
 current stream or raises; on a CPU tensor it runs the plain version
 (``ref.ssd_chunked_ref``).  ``chunk`` is the padding unit of the chunked
 algorithm: the plain version needs S to be a multiple of it, the kernel
-takes any S.  ``launches`` counts kernel launches.
+takes any S.
+
+Gradients.  The Pallas kernel has no VJP; the reference differentiates its
+plain path.  Here, when grad is enabled and an input requires it, a CUDA
+call goes through :class:`SSDScanFn`: its forward launches the forward
+kernel and saves the inputs only, its backward launches the backward
+kernel (``ref.ssd_scan_bwd_ref`` is its plain version): dx in x's dtype, dB
+and dC in B_'s, ddt and dA in float32.  ``launches`` counts forward
+launches, ``bwd_launches`` backward calls (each one call of the C entry:
+the scan, then the sums of dB and dC over the heads and of dA over b).
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.flops import count, scan_flops
 
 HEAD_DIMS = (16, 32, 64)
 STATE_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
+bwd_launches = 0
 
 _launch = None
+_launch_bwd = None
 
 
 def _kernel():
@@ -33,6 +47,15 @@ def _kernel():
                               [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                               + [ctypes.c_void_p])
     return _launch
+
+
+def _bwd_kernel():
+    global _launch_bwd
+    if _launch_bwd is None:
+        _launch_bwd = _build.bind("ssd_scan_bwd", "ssd_scan_bwd",
+                                  [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6
+                                  + [ctypes.c_void_p])
+    return _launch_bwd
 
 
 def check_args(x, dt, A, B_, C):
@@ -67,23 +90,109 @@ def check_args(x, dt, A, B_, C):
         raise ValueError(f"unsupported sizes B={Bb} S={S} H={H}")
 
 
-def ssd_scan(x, dt, A, B_, C, *, chunk=128):
-    """x: (B,S,H,P); dt: (B,S,H); A: (H,); B_,C: (B,S,N) -> y: (B,S,H,P)."""
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _forward(x, dt, A, B_, C):
     global launches
-    if x.device.type == "cpu":
-        return ref.ssd_chunked_ref(x, dt, A, B_, C, chunk=chunk)
-    if x.device.type != "cuda":
-        raise ValueError(f"no SSD kernel for device {x.device}")
-    check_args(x, dt, A, B_, C)
-    _build.refuse_grad("ssd_scan", x, dt, A, B_, C)
     Bb, S, H, P = x.shape
     N = B_.shape[-1]
     launch = _kernel()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         launch(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
                C.data_ptr(), out.data_ptr(), Bb, S, H, P, N, DTYPES[x.dtype],
-               stream)
+               _stream(x))
     launches += 1
     return out
+
+
+CHUNK = 64  # time steps between the backward kernel's saved states
+
+
+def segment_steps(P, N):
+    """Time steps of the backward kernel's recomputed segment (64 KB of
+    P x N fp32 states in shared memory)."""
+    return 16384 // (P * N)
+
+
+def bwd_scratch(x, B_):
+    """The backward kernel's scratch for x (B,S,H,P) and B_ (B,S,N), fp32
+    on x's device: dA's partial sums a (b, h); dB's and dC's a head (each
+    2x x's bf16 bytes at N = P); the state entering every CHUNK steps; and
+    a block's states entering each segment of one chunk."""
+    Bb, S, H, P = x.shape
+    N = B_.shape[-1]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    return (torch.empty((Bb, H), **f32),
+            torch.empty((Bb, S, H, N), **f32),
+            torch.empty((Bb, S, H, N), **f32),
+            torch.empty((Bb, H, -(-S // CHUNK), P, N), **f32),
+            torch.empty((Bb, H, CHUNK // segment_steps(P, N), P, N), **f32))
+
+
+def _backward(x, dt, A, B_, C, dy):
+    """One call of the backward kernel -> (dx, ddt, dA, dB, dC)."""
+    global bwd_launches
+    Bb, S, H, P = x.shape
+    N = B_.shape[-1]
+    if tuple(dy.shape) != tuple(x.shape) or dy.dtype != x.dtype:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} does not match "
+                         f"x {tuple(x.shape)} {x.dtype}")
+    launch = _bwd_kernel()
+    dx = torch.empty_like(x)
+    ddt, dA = torch.empty_like(dt), torch.empty_like(A)
+    dB, dC = torch.empty_like(B_), torch.empty_like(C)
+    dA_part, dB_part, dC_part, ckpt, seg = bwd_scratch(x, B_)
+    with torch.cuda.device(x.device):
+        launch(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
+               C.data_ptr(), dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+               dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+               dA_part.data_ptr(), dB_part.data_ptr(), dC_part.data_ptr(),
+               ckpt.data_ptr(), seg.data_ptr(), Bb, S, H, P, N,
+               DTYPES[x.dtype], _stream(x))
+    bwd_launches += 1
+    return dx, ddt, dA, dB, dC
+
+
+class SSDScanFn(torch.autograd.Function):
+    """The SSD scan with the CUDA backward kernel as its gradient; saves the
+    inputs only."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B_, C):
+        ctx.save_for_backward(x, dt, A, B_, C)
+        return _forward(x, dt, A, B_, C)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, dt, A, B_, C = ctx.saved_tensors
+        count("ssd_scan_bwd", scan_flops, x, B_.shape[-1], backward=True)
+        # autograd may hand over a strided gradient
+        return _backward(x, dt, A, B_, C, dy.to(x.dtype).contiguous())
+
+
+def ssd_scan_bwd(x, dt, A, B_, C, dy):
+    """(dx, ddt, dA, dB, dC): one call of the backward kernel on contiguous
+    inputs; on a CPU tensor ``ref.ssd_scan_bwd_ref``."""
+    if x.device.type == "cpu":
+        return ref.ssd_scan_bwd_ref(x, dt, A, B_, C, dy)
+    check_args(x, dt, A, B_, C)
+    if not dy.is_contiguous():
+        raise ValueError("dy must be contiguous")
+    return _backward(x, dt, A, B_, C, dy)
+
+
+def ssd_scan(x, dt, A, B_, C, *, chunk=128):
+    """x: (B,S,H,P); dt: (B,S,H); A: (H,); B_,C: (B,S,N) -> y: (B,S,H,P)."""
+    if x.device.type == "cpu":
+        return ref.ssd_chunked_ref(x, dt, A, B_, C, chunk=chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"no SSD kernel for device {x.device}")
+    check_args(x, dt, A, B_, C)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, B_, C)):
+        return SSDScanFn.apply(x, dt, A, B_, C)
+    return _forward(x, dt, A, B_, C)

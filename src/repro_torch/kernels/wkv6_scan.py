@@ -1,5 +1,6 @@
-"""Wrapper of the CUDA RWKV6 WKV scan kernel (``csrc/wkv6_scan.cu``), the port
-of ``repro/kernels/wkv6_scan.py``.
+"""Wrapper of the CUDA RWKV6 WKV scan kernels: the forward
+(``csrc/wkv6_scan.cu``, the port of ``repro/kernels/wkv6_scan.py``) and its
+backward (``csrc/wkv6_scan_bwd.cu``).
 
 Same signature as the Pallas kernel: r, k, v, w (B,S,H,D) and u (H,D) ->
 (B,S,H,D) in r's dtype.  r, k, v are float32 or bfloat16; w and u float32.
@@ -7,23 +8,36 @@ On a CUDA tensor it launches the kernel on the current stream or raises; on
 a CPU tensor it runs the plain version (``ref.wkv6_chunked_ref``).
 ``chunk`` is the padding unit of the chunked algorithm: the plain version
 needs S to be a multiple of it, the kernel takes any S (it walks 16-row
-chunks of its own; ``ref.wkv6_subtile_ref`` mirrors its rounding).  ``launches`` counts
-kernel launches.
+chunks of its own; ``ref.wkv6_subtile_ref`` mirrors its rounding).
+
+Gradients.  The Pallas kernel has no VJP; the reference differentiates its
+plain path.  Here, when grad is enabled and an input requires it, a CUDA
+call goes through :class:`WKV6ScanFn`: its forward launches the forward
+kernel and saves the inputs only (the backward recomputes the states from
+checkpoints of its own, see :func:`bwd_scratch`), its backward launches the backward kernel
+(``ref.wkv6_scan_bwd_ref`` is its plain version): dr, dk, dv in r's dtype,
+dw and du in float32, dw zero where ``clip(w, 1e-12, 1)`` cuts (torch.clamp's
+gradient).  ``launches`` counts forward launches, ``bwd_launches`` backward
+calls (each one call of the C entry: the scan, then the sum of du over b).
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.flops import count, scan_flops
 
 HEAD_DIMS = (16, 32, 64)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
+bwd_launches = 0
 
 _launch = None
+_launch_bwd = None
 
 
 def _kernel():
@@ -33,6 +47,15 @@ def _kernel():
                               [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                               + [ctypes.c_void_p])
     return _launch
+
+
+def _bwd_kernel():
+    global _launch_bwd
+    if _launch_bwd is None:
+        _launch_bwd = _build.bind("wkv6_scan_bwd", "wkv6_scan_bwd",
+                                  [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5
+                                  + [ctypes.c_void_p])
+    return _launch_bwd
 
 
 def check_args(r, k, v, w, u):
@@ -61,22 +84,103 @@ def check_args(r, k, v, w, u):
         raise ValueError(f"unsupported sizes B={B} S={S} H={H}")
 
 
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _forward(r, k, v, w, u):
+    global launches
+    B, S, H, D = r.shape
+    launch = _kernel()
+    out = torch.empty_like(r)
+    with torch.cuda.device(r.device):
+        launch(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+               u.data_ptr(), out.data_ptr(), B, S, H, D, DTYPES[r.dtype],
+               _stream(r))
+    launches += 1
+    return out
+
+
+CHUNK = 64  # time steps between the backward kernel's saved states
+
+
+def segment_steps(D):
+    """Time steps of the backward kernel's recomputed segment (64 KB of
+    D x D fp32 states in shared memory)."""
+    return 16384 // (D * D)
+
+
+def bwd_scratch(r):
+    """The backward kernel's scratch for r (B,S,H,D), fp32 on r's device:
+    du's partial sums a (b, h); the state entering every CHUNK steps; and
+    a block's states entering each segment of one chunk.  O(S D^2 / CHUNK)
+    a (b, h): 2x r's bf16 bytes at D 64."""
+    B, S, H, D = r.shape
+    f32 = dict(dtype=torch.float32, device=r.device)
+    return (torch.empty((B, H, D), **f32),
+            torch.empty((B, H, -(-S // CHUNK), D, D), **f32),
+            torch.empty((B, H, CHUNK // segment_steps(D), D, D), **f32))
+
+
+def _backward(r, k, v, w, u, dy):
+    """One call of the backward kernel -> (dr, dk, dv, dw, du)."""
+    global bwd_launches
+    B, S, H, D = r.shape
+    if tuple(dy.shape) != tuple(r.shape) or dy.dtype != r.dtype:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} does not match "
+                         f"r {tuple(r.shape)} {r.dtype}")
+    launch = _bwd_kernel()
+    dr, dk, dv = (torch.empty_like(r) for _ in range(3))
+    dw = torch.empty_like(w)
+    du = torch.empty_like(u)
+    du_part, ckpt, seg = bwd_scratch(r)
+    with torch.cuda.device(r.device):
+        launch(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+               u.data_ptr(), dy.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+               dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
+               du_part.data_ptr(), ckpt.data_ptr(), seg.data_ptr(), B, S, H,
+               D, DTYPES[r.dtype], _stream(r))
+    bwd_launches += 1
+    return dr, dk, dv, dw, du
+
+
+class WKV6ScanFn(torch.autograd.Function):
+    """The WKV6 scan with the CUDA backward kernel as its gradient; saves
+    the inputs only."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        ctx.save_for_backward(r, k, v, w, u)
+        return _forward(r, k, v, w, u)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        r, k, v, w, u = ctx.saved_tensors
+        count("wkv6_scan_bwd", scan_flops, r, r.shape[-1], backward=True)
+        # autograd may hand over a strided gradient
+        return _backward(r, k, v, w, u, dy.to(r.dtype).contiguous())
+
+
+def wkv6_scan_bwd(r, k, v, w, u, dy):
+    """(dr, dk, dv, dw, du): one call of the backward kernel on contiguous
+    inputs; on a CPU tensor ``ref.wkv6_scan_bwd_ref``."""
+    if r.device.type == "cpu":
+        return ref.wkv6_scan_bwd_ref(r, k, v, w, u, dy)
+    check_args(r, k, v, w, u)
+    if not dy.is_contiguous():
+        raise ValueError("dy must be contiguous")
+    return _backward(r, k, v, w, u, dy)
+
+
 def wkv6_scan(r, k, v, w, u, *, chunk=64):
     """r,k,v,w: (B,S,H,D); u: (H,D) -> (B,S,H,D)."""
-    global launches
     if r.device.type == "cpu":
         return ref.wkv6_chunked_ref(r, k, v, w, u, chunk=chunk)
     if r.device.type != "cuda":
         raise ValueError(f"no WKV6 kernel for device {r.device}")
     check_args(r, k, v, w, u)
-    _build.refuse_grad("wkv6_scan", r, k, v, w, u)
-    B, S, H, D = r.shape
-    launch = _kernel()
-    out = torch.empty_like(r)
-    with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream(r.device).cuda_stream
-        launch(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-               u.data_ptr(), out.data_ptr(), B, S, H, D, DTYPES[r.dtype],
-               stream)
-    launches += 1
-    return out
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, w, u)):
+        return WKV6ScanFn.apply(r, k, v, w, u)
+    return _forward(r, k, v, w, u)

@@ -196,7 +196,7 @@ def lower_cell(arch: str, shape_name, mesh,
     params = lm.init_params(cfg, torch.Generator().manual_seed(0), META)
 
     if shape.kind == "train":
-        opt = make_optimizer(cfg.optimizer)
+        opt = make_optimizer(cfg.optimizer, cfg=cfg)
         state = TrainState(params, opt.init(named_params(params)),
                            torch.zeros((), dtype=torch.int32, device=META))
         state = shard_state(state, mesh, over)

@@ -4,18 +4,22 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch jag-surrogate \\
       --steps 200 --data <bundler root>
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced --steps 4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \
+      --repeats 16 --steps 20 --data <bundler root>
 
 Runs on the card unless ``--device cpu``; on the card attention's forward
-and backward are the flash kernels.  Layer kinds whose kernels have no
-backward yet (rwkv6's WKV6 scan, mamba2's SSD scan) raise there; on the CPU
-they train through the plain versions.  Archs that read extras get them
+and backward are the flash kernels, rwkv6's and mamba2's scans the WKV6 and
+SSD kernels and their backward kernels; on the CPU every layer trains
+through the plain versions under autograd.  Archs that read extras get them
 in every batch, random bfloat16 as the reference's synthetic stream draws
 them: whisper's ``enc_embed`` (batch, enc_len, d_model) and
 llama-vision's ``img_embed`` (batch, n_img_tokens, d_vision).  The
 reference feeds them on the synthetic stream only (its ``--data`` batches
 lack them, and whisper's loss then raises); the port feeds them on both,
 so whisper trains on a study's bundles too, where the loss can fall
-(uniform synthetic tokens carry nothing to learn).  Checkpoint/restart is
+(uniform synthetic tokens carry nothing to learn).  ``--repeats K`` cuts
+the depth to the prologue and K repeats of the superblock, at full width
+(a model whose float32 weights and AdamW moments do not fit a card whole).  Checkpoint/restart is
 automatic: re-running with the same ``--workdir`` resumes.  ``--data`` takes a
 bundler root of JAG results, tokenized as the reference does; the default
 is the synthetic token stream.  Prints one JSON summary: the reference's
@@ -34,8 +38,6 @@ import torch
 from repro_torch import env
 from repro_torch.data.pipeline import SyntheticTokens
 
-# layer kind -> the kernel it runs on the card, which has no backward yet
-_NO_BACKWARD = {"rwkv6": "wkv6_scan", "mamba2": "ssd_scan"}
 SCALAR_KEYS = ["yield", "tion", "velocity", "bang_time"]
 
 
@@ -66,10 +68,14 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--repeats", type=int, default=None,
+                    help="superblock repeats (default: the config's)")
     ap.add_argument("--workdir",
                     default=os.path.join(tempfile.gettempdir(),
                                          "repro_torch_train"))
-    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--ckpt-every", type=int, default=50,
+                    help="steps between checkpoints (0: none, not even at "
+                         "the end)")
     ap.add_argument("--data", default="synthetic",
                     help="synthetic | path to a bundler root of JAG results")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
@@ -77,7 +83,6 @@ def main(argv=None):
 
     from repro_torch.configs import registry
     from repro_torch.data.pipeline import ensemble_token_stream
-    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fak
     from repro_torch.kernels import ssd_scan as ssdk
     from repro_torch.kernels import wkv6_scan as wkvk
@@ -86,6 +91,9 @@ def main(argv=None):
     dev = env.device(args.device)
     cfg = (registry.reduced_config(args.arch) if args.reduced
            else registry.get_config(args.arch))
+    if args.repeats is not None:
+        cfg = cfg.replace(n_repeat=args.repeats, n_layers=len(cfg.prologue)
+                          + args.repeats * len(cfg.superblock))
     extras = {}
     if cfg.n_enc_layers:
         extras["enc_embed"] = ((args.batch, cfg.enc_len, cfg.d_model),
@@ -93,10 +101,6 @@ def main(argv=None):
     if cfg.n_img_tokens:
         extras["img_embed"] = ((args.batch, cfg.n_img_tokens, cfg.d_vision),
                                "bfloat16")
-    if dev.type == "cuda":
-        for spec in cfg.plan:
-            if spec.kind in _NO_BACKWARD:
-                raise _build.no_backward(_NO_BACKWARD[spec.kind])
     if args.data == "synthetic":
         data = with_extras(SyntheticTokens(args.batch, args.seq,
                                            cfg.vocab_size), extras)
@@ -115,13 +119,15 @@ def main(argv=None):
     tr = Trainer(cfg, args.workdir, data, lr=args.lr,
                  ckpt_every=args.ckpt_every, device=dev)
     before = {"flash": fak.launches, "flash_bwd": fak.bwd_launches,
-              "wkv6": wkvk.launches, "ssd": ssdk.launches}
+              "wkv6": wkvk.launches, "wkv6_bwd": wkvk.bwd_launches,
+              "ssd": ssdk.launches, "ssd_bwd": ssdk.bwd_launches}
     t0 = time.time()
     state = tr.train(args.steps)
     dt = time.time() - t0
     done = len(tr.history)
     launched = {"flash": fak.launches, "flash_bwd": fak.bwd_launches,
-                "wkv6": wkvk.launches, "ssd": ssdk.launches}
+                "wkv6": wkvk.launches, "wkv6_bwd": wkvk.bwd_launches,
+                "ssd": ssdk.launches, "ssd_bwd": ssdk.bwd_launches}
     summary = {
         "arch": cfg.arch_id, "steps": int(state.step),
         "ran_steps": done, "final_loss": tr.history[-1]["loss"] if done else None,

@@ -20,8 +20,17 @@ top-k breaks ties by the lower expert index, as ``jax.lax.top_k`` does,
 through a stable descending sort (bf16 router logits tie often).
 
 Under a mesh (``_moe_mesh``) the layer runs on each rank's rows in whole
-groups, its aux losses reduced over the batch split; the expert weights
-are gathered whole (expert parallelism over ``model`` is not ported).
+groups, its aux losses reduced over the batch split, with expert
+parallelism: the expert weights keep their split over ``model`` (the
+reference's ``"experts": ("model",)``), each rank runs its own E / m
+experts on its slice of the (E, G, C, D) slot table, and the combine's sum
+over experts is a partial sum over ``model``, reduced on the (rows, D)
+activations.  That is exact for the port's placements: a rank's tokens are
+replicated over ``model`` (the batch splits over the batch axes only), so
+every rank of a ``model`` group routes the same tokens to the same slots,
+and no all-to-all is needed.  (Where the tokens are split over a mesh dim
+that splits the experts, they are gathered over it first: an all-to-all
+would exchange the slots instead, and no rule of the port places them so.)
 """
 from __future__ import annotations
 
@@ -37,8 +46,8 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (dense_init, dtype_of, glu_mlp,
                                        init_glu_mlp)
-from repro_torch.parallel.sharding import (batch_placements, local_offset,
-                                          run_local)
+from repro_torch.parallel.sharding import (batch_placements, gathered,
+                                          local_offset, run_local)
 
 
 class MoE(nn.Module):
@@ -135,15 +144,21 @@ def moe_layer(p, x, cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, Any]]:
     return out.reshape(B, S, D).to(x.dtype), aux
 
 
-def _dispatch(p, xf, expert_ids, gates, cfg, T):
+def _dispatch(p, xf, expert_ids, gates, cfg, T, experts=None):
+    """The routed tokens through the experts and back.  ``experts`` =
+    (e0, n): ``p`` holds experts [e0, e0 + n) only (expert parallelism),
+    and the output is their share of the combine, a partial sum."""
     C = _capacity(cfg, T)
     pos = _positions_in_expert(expert_ids, cfg.n_experts)  # (G,T,k)
     keep = pos < C
     gates = gates * keep
+    experts = experts or (0, cfg.n_experts)
     if cfg.moe_impl == "sort":
-        return _moe_sort(p, xf, expert_ids, gates, pos, keep, C, cfg)
+        return _moe_sort(p, xf, expert_ids, gates, pos, keep, C, cfg,
+                         experts)
     if cfg.moe_impl == "gshard":
-        return _moe_gshard(p, xf, expert_ids, gates, pos, keep, C, cfg)
+        return _moe_gshard(p, xf, expert_ids, gates, pos, keep, C, cfg,
+                           experts)
     raise ValueError(f"moe_impl={cfg.moe_impl!r}: gshard | sort")
 
 
@@ -155,32 +170,46 @@ def _moe_mesh(p, x, cfg: ModelConfig, T):
     then routes every group).  The load-balance loss is E * sum(me * ce)
     of the global means, so each rank's sums are reduced over the batch
     split before the product; the z-loss likewise.  The expert weights are
-    read whole (gathered over ``model`` too: no expert parallelism); the
-    shared experts run tensor-parallel on the DTensor."""
+    read in their compute placements (gathered over the fsdp dims, their
+    split of E over ``model`` kept): each rank runs the experts it holds,
+    and its output, a partial sum over the experts, is reduced over the
+    mesh dims that split them.  Their gradients stay split there and are
+    reduced over the batch split.  The shared experts run tensor-parallel
+    on the DTensor."""
     B, S, D = x.shape
     E = cfg.n_experts
     cdt = dtype_of(cfg.compute_dtype)
     mesh = x.device_mesh
     whole = [Replicate()] * mesh.ndim
+    router = p.w_router.redistribute(mesh, whole)
+    ws = [gathered(w) for w in (p.experts_wi, p.experts_wg, p.experts_wo)]
+    ep = [i for i, pl in enumerate(ws[0].placements) if pl == Shard(0)]
+    e0, n_local = local_offset(ws[0], 0)
     here = batch_placements(x)
-    xl = x.redistribute(mesh, here)
+    xl = x.redistribute(mesh, [Replicate() if i in ep else pl
+                               for i, pl in enumerate(here)])
     if (local_offset(xl, 0)[1] * S) % T:
         xl = xl.redistribute(mesh, whole)
-    sums = [Partial() if pl == Shard(0) else Replicate()
-            for pl in xl.placements]
-    ws = [w.redistribute(w.device_mesh, whole) for w in (
-        p.w_router, p.experts_wi, p.experts_wg, p.experts_wo)]
+    # every output is a partial sum over the expert dims, so that every
+    # input's gradient is one there: the router's statistics, the same on
+    # each rank of an expert group, are counted by its first rank alone
+    sums = [Partial() if pl == Shard(0) or i in ep else Replicate()
+            for i, pl in enumerate(xl.placements)]
+    partial = [Partial() if i in ep else pl
+               for i, pl in enumerate(xl.placements)]
+    own_stats = 1.0 if e0 == 0 else 0.0
 
     def local(xs, w_router, wi, wg, wo):
         ex = SimpleNamespace(w_router=w_router, experts_wi=wi,
                              experts_wg=wg, experts_wo=wo)
         xf = xs.reshape(-1, T, D).to(cdt)
         expert_ids, gates, stats = _route(ex, xf, cfg, B * S)
-        out = _dispatch(ex, xf, expert_ids, gates, cfg, T)
-        return (out.reshape(xs.shape),) + stats
+        out = _dispatch(ex, xf, expert_ids, gates, cfg, T,
+                        experts=(e0, n_local))
+        return (out.reshape(xs.shape),) + tuple(t * own_stats for t in stats)
 
-    out, me, ce, z = run_local(local, xl, *ws,
-                               out=(list(xl.placements), sums, sums, sums))
+    out, me, ce, z = run_local(local, xl, router, *ws,
+                               out=(partial, sums, sums, sums))
     me, ce, z = (t.redistribute(mesh, whole) for t in (me, ce, z))
     out = out.redistribute(mesh, here)
     if cfg.n_shared_experts:
@@ -196,11 +225,12 @@ def _expert_ffn(p, xe, cdt):
     return torch.einsum("egcf,efd->egcd", F.silu(g) * h, p.experts_wo.to(cdt))
 
 
-def _moe_gshard(p, xf, expert_ids, gates, pos, keep, C, cfg):
-    E = cfg.n_experts
+def _moe_gshard(p, xf, expert_ids, gates, pos, keep, C, cfg, experts):
+    e0, n = experts
     cdt = xf.dtype
-    # combine[g,t,e,c] = sum_j gate_j * 1[e=e_j] * 1[c=pos_j]
-    oh_e = _one_hot(expert_ids, E, cdt)  # (G,T,k,E)
+    # combine[g,t,e,c] = sum_j gate_j * 1[e=e_j] * 1[c=pos_j], over the
+    # experts [e0, e0 + n) held here
+    oh_e = _one_hot(expert_ids - e0, n, cdt)  # (G,T,k,n); others: zero rows
     oh_c = _one_hot(pos, C, cdt)  # (G,T,k,C); dropped slots: zero rows
     combine = torch.einsum("gtk,gtke,gtkc->gtec", gates.to(cdt), oh_e, oh_c)
     dispatch = (combine > 0).to(cdt)
@@ -209,13 +239,18 @@ def _moe_gshard(p, xf, expert_ids, gates, pos, keep, C, cfg):
     return torch.einsum("gtec,egcd->gtd", combine, ye)
 
 
-def _moe_sort(p, xf, expert_ids, gates, pos, keep, C, cfg):
+def _moe_sort(p, xf, expert_ids, gates, pos, keep, C, cfg, experts):
     """Dispatch without products: scatter tokens into an (E,G,C,D) slot
-    table by index, gather back with gates.  Dropped tokens go to a trash
+    table by index, gather back with gates.  Dropped tokens, and tokens
+    routed to experts not held here (outside [e0, e0 + n)), go to a trash
     slot."""
     G, T, D = xf.shape
-    E, k = cfg.n_experts, cfg.top_k
+    e0, E = experts
+    k = cfg.top_k
     cdt = xf.dtype
+    expert_ids = expert_ids - e0
+    keep = keep & (expert_ids >= 0) & (expert_ids < E)
+    gates = gates * keep
     slot = torch.where(keep, expert_ids * C + pos, E * C)  # E*C = trash
     flat_slots = slot.reshape(G, T * k)
     tok_idx = torch.arange(T, device=xf.device).repeat_interleave(k)

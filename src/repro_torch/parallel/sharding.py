@@ -220,10 +220,11 @@ def local_offset(x: DTensor, dim: int) -> Tuple[int, int]:
 
 def _grad_placements(a: DTensor, out: Sequence) -> list:
     """Where ``a``'s gradient lies when ``out`` (the output's placements)
-    splits a mesh dim that ``a`` is replicated over: each rank's gradient
-    is then its own rows' (heads') share, a partial sum."""
-    return [Partial() if p == Replicate() and isinstance(o, Shard) else p
-            for p, o in zip(a.placements, out)]
+    splits a mesh dim that ``a`` is replicated over, or is a partial sum
+    over it: each rank's gradient is then its own rows' (heads', experts')
+    share, a partial sum."""
+    return [Partial() if p == Replicate() and isinstance(o, (Shard, Partial))
+            else p for p, o in zip(a.placements, out)]
 
 
 def run_local(fn, *args, out=None):

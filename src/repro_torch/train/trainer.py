@@ -2,7 +2,8 @@
 ``repro/train/trainer.py``).
 
 State is checkpointed every ``ckpt_every`` steps and at the last step
-(async, atomic); ``Trainer.restore_or_init`` resumes from the latest
+(async, atomic; ``ckpt_every`` 0 saves none, for a run whose state is
+not kept); ``Trainer.restore_or_init`` resumes from the latest
 checkpoint, so a killed run relaunched with the same workdir continues.
 Per-step wall times are journaled (host clock around a step that ends in
 reading the loss, which waits for the device); steps slower than
@@ -53,7 +54,7 @@ class Trainer:
         self.mesh, self.rules = mesh, rules
         self.device = torch.device(device if mesh is None
                                    else mesh.device_type)
-        self.optimizer = make_optimizer(cfg.optimizer, lr=lr)
+        self.optimizer = make_optimizer(cfg.optimizer, lr=lr, cfg=cfg)
         self.step_fn = make_train_step(cfg, self.optimizer, mesh, rules)
         self.ckpt = CheckpointManager(os.path.join(workdir, "ckpt"), keep=keep)
         self.ckpt_every = ckpt_every
@@ -96,7 +97,8 @@ class Trainer:
             if len(self.step_times) > 5 and dt > self.straggler_factor * med:
                 self.stragglers += 1
             self.history.append({"step": i + 1, "loss": loss, "dt": dt})
-            if (i + 1) % self.ckpt_every == 0 or (i + 1) == num_steps:
+            if self.ckpt_every > 0 and ((i + 1) % self.ckpt_every == 0
+                                        or (i + 1) == num_steps):
                 self.ckpt.save(i + 1, state_tree(state))
         self.ckpt.wait()
         return state

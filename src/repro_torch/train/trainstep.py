@@ -66,7 +66,7 @@ def init_state(gen: torch.Generator, cfg: ModelConfig,
     """Random parameters drawn from ``gen`` (on its device), moved to
     ``device`` (default: ``gen``'s), and fresh optimizer state there.  A
     CPU generator gives one model on every device."""
-    optimizer = optimizer or make_optimizer(cfg.optimizer)
+    optimizer = optimizer or make_optimizer(cfg.optimizer, cfg=cfg)
     device = torch.device(device) if device is not None else gen.device
     params = lm.init_params(cfg, gen, gen.device).to(device)
     return TrainState(params, optimizer.init(named_params(params)),
@@ -183,7 +183,7 @@ def _run_loss(model, batch, cfg, mesh, leaves=None):
 
 def make_train_step(cfg: ModelConfig, optimizer: Optional[Optimizer] = None,
                     mesh=None, rules=None):
-    optimizer = optimizer or make_optimizer(cfg.optimizer)
+    optimizer = optimizer or make_optimizer(cfg.optimizer, cfg=cfg)
     n_mb = max(1, cfg.microbatch)
     acc_dt = L.dtype_of(cfg.accum_dtype)
 

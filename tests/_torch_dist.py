@@ -279,7 +279,7 @@ def step_optimizer(cfg):
     measure the step."""
     from repro_torch.train.optimizer import make_optimizer
     kw = {"eps": 1e-3} if cfg.optimizer == "adamw" else {}
-    return make_optimizer(cfg.optimizer, lr=1e-3, **kw)
+    return make_optimizer(cfg.optimizer, lr=1e-3, cfg=cfg, **kw)
 
 
 def _seeded_state(cfg, opt, torch):

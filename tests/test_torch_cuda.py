@@ -487,78 +487,135 @@ def test_surrogate_on_the_card_matches_the_cpu(cuda_device):
 
 
 # ---------------------------------------------------------------------------
-# gradients: flash has its backward kernel, the scans refuse grad
+# gradients: every kernel has its backward kernel
 # ---------------------------------------------------------------------------
 
-def test_kernel_wrappers_refuse_grad(cuda_device):
-    """Under grad with an input that requires it, flash attention returns
-    an output with a ``grad_fn`` whose backward is one launch of the
-    backward kernel; WKV6 and SSD still raise ("no backward") instead of
-    returning an output without ``grad_fn``.  Under no_grad, or with no
-    input requiring grad, each launches its forward and nothing else."""
+def test_kernel_wrappers_route_grad_through_backward_kernels(cuda_device):
+    """Under grad with an input that requires it, each wrapper returns an
+    output with a ``grad_fn`` whose backward is one call of its backward
+    kernel, with a gradient for that input in its dtype; under no_grad,
+    inference mode, or with no input requiring grad, each launches its
+    forward and nothing else."""
     q, k, v = _qkv(cuda_device, "bfloat16", 1, 64, 64, 4, 4, 64)
     r, kw, vw, w, u = _wkv_inputs(cuda_device, "bfloat16", 1, 32, 4, 64)
     x, dt, A, Bm, Cm = _ssd_inputs(cuda_device, "bfloat16", 1, 32, 4, 64, 64)
-    for t in (q, k, v):
-        t.requires_grad_(True)
-        before, bwd = fak.launches, fak.bwd_launches
-        out = fak.flash_attention(q, k, v)
-        assert out.grad_fn is not None and fak.launches == before + 1
-        out.float().square().sum().backward()
-        torch.cuda.synchronize()
-        assert fak.bwd_launches == bwd + 1 and fak.launches == before + 1
-        assert t.grad is not None and t.grad.dtype == t.dtype
-        assert torch.isfinite(t.grad.float()).all()
-        t.grad = None
-        with torch.no_grad():
-            fak.flash_attention(q, k, v)
-        with torch.inference_mode():
-            fak.flash_attention(q, k, v)
-        assert fak.launches == before + 3 and fak.bwd_launches == bwd + 1
-        t.requires_grad_(False)
-    assert fak.flash_attention(q, k, v).grad_fn is None
-    calls = [(wkvk, lambda: wkvk.wkv6_scan(r, kw, vw, w, u, chunk=32),
+    calls = [(fak, lambda: fak.flash_attention(q, k, v), (q, k, v)),
+             (wkvk, lambda: wkvk.wkv6_scan(r, kw, vw, w, u, chunk=32),
               (r, kw, vw, w, u)),
              (ssdk, lambda: ssdk.ssd_scan(x, dt, A, Bm, Cm, chunk=32),
               (x, dt, A, Bm, Cm))]
     for mod, call, inputs in calls:
         for t in inputs:
             t.requires_grad_(True)
-            before = mod.launches
-            with pytest.raises(RuntimeError, match="no backward"):
-                call()
-            assert mod.launches == before
+            before, bwd = mod.launches, mod.bwd_launches
+            out = call()
+            assert out.grad_fn is not None and mod.launches == before + 1
+            out.float().square().sum().backward()
+            torch.cuda.synchronize()
+            assert mod.bwd_launches == bwd + 1 and mod.launches == before + 1
+            assert t.grad is not None and t.grad.dtype == t.dtype
+            assert torch.isfinite(t.grad.float()).all()
+            t.grad = None
             with torch.no_grad():
                 call()
             with torch.inference_mode():
                 call()
-            assert mod.launches == before + 2
+            assert (mod.launches, mod.bwd_launches) == (before + 3, bwd + 1)
             t.requires_grad_(False)
-        out = call()
-        assert out.grad_fn is None
+        assert call().grad_fn is None
 
 
-def test_d192_under_grad_raises(cuda_device):
-    """The forward takes D 192 (MLA's prefill); the backward kernel does
-    not, so a call under grad raises before any launch, as do the lse and
-    backward entries, and nothing falls back."""
-    for dtype in ("bfloat16", "float32"):
-        q, k, v = _qkv(cuda_device, dtype, 1, 64, 64, 4, 4, 192)
-        before, bwd = fak.launches, fak.bwd_launches
-        q.requires_grad_(True)
-        with pytest.raises(ValueError, match="no backward kernel"):
-            fak.flash_attention(q, k, v)
-        q.requires_grad_(False)
-        with pytest.raises(ValueError, match="no backward kernel"):
-            fak.flash_attention_lse(q, k, v)
-        with pytest.raises(ValueError, match="no backward kernel"):
-            fak.flash_attention_bwd(q, k, v, q, torch.zeros(
-                1, 4, 64, device=cuda_device), q)
-        assert (fak.launches, fak.bwd_launches) == (before, bwd)
-        with torch.no_grad():
-            q.requires_grad_(True)
-            fak.flash_attention(q, k, v)
-        assert fak.launches == before + 1
+@pytest.mark.parametrize("B,S,H,D,dtype,strong", [
+    (8, 128, 40, 64, "bfloat16", False),  # rwkv6-3b's training shape
+    (2, 77, 40, 64, "bfloat16", True),    # ragged, decays at the clip
+    (2, 64, 4, 64, "float32", False),
+    (1, 37, 3, 32, "float32", True),
+    (1, 20, 2, 16, "float32", False),
+    # past the kernel's 64-step chunks at each segment length (4, 16, 64)
+    (1, 201, 2, 64, "float32", True),
+    (1, 137, 3, 32, "float32", True),
+    (1, 150, 2, 16, "float32", False),
+])
+def test_wkv6_backward_kernel_vs_plain(cuda_device, B, S, H, D, dtype,
+                                       strong):
+    """dr, dk, dv, dw, du of the backward kernel against
+    ref.wkv6_scan_bwd_ref on the same inputs, and the autograd Function's
+    gradients equal to the direct call's."""
+    r, k, v, w, u = _wkv_inputs(cuda_device, dtype, B, S, H, D,
+                                strong=strong)
+    dy = _wkv_inputs(cuda_device, dtype, B, S, H, D, seed=7)[0]
+    before = wkvk.bwd_launches
+    got = wkvk.wkv6_scan_bwd(r, k, v, w, u, dy)
+    torch.cuda.synchronize()
+    assert wkvk.bwd_launches == before + 1
+    want = ref.wkv6_scan_bwd_ref(r, k, v, w, u, dy, chunk=16)
+    for name, a, b in zip("rkvwu", got, want):
+        assert a.dtype == b.dtype
+        assert _rel(a, b) < SCAN_REL[dtype], name
+    xs = [t.clone().requires_grad_() for t in (r, k, v, w, u)]
+    wkvk.wkv6_scan(*xs).backward(dy)
+    for x, g in zip(xs, got):
+        assert torch.equal(x.grad, g)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,dtype", [
+    (8, 128, 64, 64, 64, "bfloat16"),  # zamba2-1.2b's training shape
+    (2, 77, 64, 64, 64, "bfloat16"),
+    (2, 64, 4, 64, 64, "float32"),
+    (1, 37, 3, 32, 128, "float32"),
+    (1, 20, 2, 16, 16, "float32"),
+    # past the kernel's 64-step chunks at each segment length (4, 64, 2)
+    (1, 201, 2, 64, 64, "float32"),
+    (1, 150, 2, 16, 16, "float32"),
+    (1, 137, 2, 64, 128, "float32"),
+])
+def test_ssd_backward_kernel_vs_plain(cuda_device, B, S, H, P, N, dtype):
+    """dx, ddt, dA, dB, dC of the backward kernel against
+    ref.ssd_scan_bwd_ref, and the autograd Function's gradients equal to
+    the direct call's."""
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda_device, dtype, B, S, H, P, N)
+    dy = _ssd_inputs(cuda_device, dtype, B, S, H, P, N, seed=7)[0]
+    before = ssdk.bwd_launches
+    got = ssdk.ssd_scan_bwd(x, dt, A, Bm, Cm, dy)
+    torch.cuda.synchronize()
+    assert ssdk.bwd_launches == before + 1
+    want = ref.ssd_scan_bwd_ref(x, dt, A, Bm, Cm, dy, chunk=16)
+    for name, a, b in zip(("x", "dt", "A", "B", "C"), got, want):
+        assert a.dtype == b.dtype
+        assert _rel(a, b) < SCAN_REL[dtype], name
+    xs = [t.clone().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+    ssdk.ssd_scan(*xs).backward(dy)
+    for t, g in zip(xs, got):
+        assert torch.equal(t.grad, g)
+
+
+@pytest.mark.parametrize("B,S,T,H,KV,dtype,causal", [
+    (4, 512, 512, 16, 16, "bfloat16", True),  # deepseek's MLA, training
+    (1, 45, 83, 4, 2, "bfloat16", False),
+    (2, 100, 100, 4, 2, "float32", True),
+])
+def test_d192_backward_kernel_vs_plain(cuda_device, B, S, T, H, KV, dtype,
+                                       causal):
+    """The D-192 backward (MLA: q/k at nope 128 + rope 64, v padded to
+    192) against ref.flash_attention_bwd_ref (bf16 also against its
+    mirror), and through the autograd Function."""
+    q, k, v = _qkv(cuda_device, dtype, B, S, T, H, KV, 192)
+    do = _qkv(cuda_device, dtype, B, S, T, H, KV, 192, seed=4)[0]
+    out, lse = fak.flash_attention_lse(q, k, v, causal=causal)
+    got = fak.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_bwd_ref(q, k, v, out, do, lse, causal=causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert _rel(a, b) < BWD_REL[dtype], name
+    if dtype == "bfloat16":
+        mirror = ref.flash_attention_bwd_tc_ref(q, k, v, out, do, lse,
+                                                causal=causal)
+        for name, a, b in zip(("dq", "dk", "dv"), got, mirror):
+            assert _rel(a, b) < BWD_TC_REL, name
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    fak.flash_attention(*xs, causal=causal).backward(do)
+    for x, g in zip(xs, got):
+        assert torch.equal(x.grad, g)
 
 
 def _mla_moe_cfg(**over):

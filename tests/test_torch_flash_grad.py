@@ -134,12 +134,22 @@ def test_backward_refuses_what_its_kernel_cannot_take():
     fak.check_backward_args(q, k[:, :20])
 
 
-def test_scan_kernels_still_refuse_grad():
-    """WKV6 and SSD have no backward kernel: their wrappers' guard raises
-    under grad, and launch.train names it for those layer kinds."""
-    x = torch.zeros(2, requires_grad=True)
-    for kernel in ("wkv6_scan", "ssd_scan"):
-        with pytest.raises(RuntimeError, match="no backward"):
-            _build.refuse_grad(kernel, x)
-        with torch.no_grad():
-            _build.refuse_grad(kernel, x)
+def test_scan_wrappers_take_grad_and_nothing_refuses_it():
+    """WKV6 and SSD have their backward kernels (autograd Functions on a
+    CUDA tensor: tests/test_torch_cuda.py); on the CPU the wrappers'
+    outputs carry autograd's graph through the plain versions, and neither
+    the build module nor launch.train keeps a refusal of grad."""
+    from repro_torch.launch import train as launch_train
+    assert not hasattr(_build, "refuse_grad")
+    assert not hasattr(_build, "no_backward")
+    assert not hasattr(launch_train, "_NO_BACKWARD")
+    rng = np.random.default_rng(0)
+    r, k, v = (torch.from_numpy(rng.standard_normal((1, 8, 2, 16),
+                                                    dtype=np.float32))
+               .requires_grad_() for _ in range(3))
+    w = torch.full((1, 8, 2, 16), 0.9, requires_grad=True)
+    u = torch.zeros(2, 16, requires_grad=True)
+    y = ops.wkv6_scan(r, k, v, w, u, chunk=8)
+    assert y.grad_fn is not None
+    y.sum().backward()
+    assert all(t.grad is not None for t in (r, k, v, w, u))

@@ -79,8 +79,9 @@ def test_optimizer_converges_on_quadratic(name):
     t1 = torch.tensor([1.0, -2.0, 3.0, 0.5])
     t2 = torch.arange(15.0).reshape(3, 5) / 10
     p = _quad_params()
+    # a tree with no layers: Adafactor's layout is None (every leaf its own)
     opt = popt.make_optimizer(name, lr=0.05, wd=0.0) if name == "adamw" \
-        else popt.make_optimizer(name, lr=0.05)
+        else popt.adafactor(lr=0.05, layout=None)
     st = opt.init(p)
 
     def loss(pp):
@@ -90,6 +91,21 @@ def test_optimizer_converges_on_quadratic(name):
         g = dict(zip(p, torch.autograd.grad(loss(p), list(p.values()))))
         p, st = opt.update(g, st, p)
     assert float(loss(p).detach()) < 1e-2
+
+
+def test_make_optimizer_adafactor_needs_the_models_layout():
+    """Adafactor stacks a model's per-layer leaves by its layout: without
+    the config make_optimizer refuses it (it would silently be another
+    optimizer than the reference's); AdamW needs no config."""
+    with pytest.raises(ValueError, match="pass cfg"):
+        popt.make_optimizer("adafactor", lr=0.05)
+    cfg = preg.reduced_config("arctic-480b")
+    names = [f"layers.{i}.norm1.scale" for i in range(cfg.n_layers)]
+    p = {n: torch.zeros(8) for n in names}
+    st = popt.make_optimizer("adafactor", lr=0.05, cfg=cfg).init(p)
+    n_pro, n_sb = popt.layout_of(cfg)
+    assert len(st["f"]) == n_pro + n_sb
+    assert popt.make_optimizer("adamw", lr=0.05).init(p)
 
 
 def test_adafactor_state_is_factored():
@@ -274,6 +290,103 @@ def test_train_step_with_microbatches_matches_reference():
             assert rel_err(a, want[name]) < 1e-4, (k, name)
 
 
+# the archs whose layers train through the scans' and D-192 attention's
+# backward kernels on the card (WKV6, SSD with zamba2's shared attention,
+# MLA with MoE); here their plain versions under autograd
+SCAN_MOE_ARCHS = ("rwkv6-3b", "zamba2-1.2b", "deepseek-v2-lite-16b")
+
+
+def _arch_configs(arch, **over):
+    kw = dict(compute_dtype="float32", param_dtype="float32",
+              accum_dtype="float32", **over)
+    return (jreg.reduced_config(arch).replace(**kw),
+            preg.reduced_config(arch).replace(**kw))
+
+
+@pytest.mark.parametrize("arch", SCAN_MOE_ARCHS)
+def test_scan_and_moe_archs_loss_and_gradients_match_reference(arch):
+    """Reduced configs in float32: loss and every parameter's gradient
+    against jax.grad of the reference's loss_fn at rel 1e-4."""
+    jc, pc = _arch_configs(arch)
+    jparams = jlm.init_params(jax.random.PRNGKey(1), jc)
+    batch = SyntheticTokens(2, 24, jc.vocab_size, seed=2).batch_at(0)
+    (jloss, _), jg = jax.value_and_grad(jlm.loss_fn, has_aux=True)(
+        jparams, {k: jnp.asarray(v) for k, v in batch.items()}, jc)
+    model = convert.params_from_jax(to_numpy(jparams), pc, "cpu")
+    loss, _ = lm.loss_fn(model, tensors(batch), pc)
+    assert rel_err(loss, jloss) < 1e-4
+    loss.backward()
+    want = convert._state_dict(to_numpy(jg), pc)
+    for name, p in model.named_parameters():
+        # a parameter the loss never reads has no gradient in torch, a
+        # zero one in JAX (zamba2's shared block's norm1)
+        got = p.grad if p.grad is not None else torch.zeros_like(p)
+        if not float(torch.as_tensor(want[name]).abs().max()):
+            assert float(got.abs().max()) == 0.0, name
+            continue
+        assert rel_err(got, want[name]) < 1e-4, name
+
+
+@pytest.mark.parametrize("arch", SCAN_MOE_ARCHS)
+def test_scan_and_moe_archs_adamw_step_matches_reference(arch):
+    """One train step (AdamW, two microbatches) from the same state: loss,
+    gradient norm and both moments at rel 1e-4."""
+    jc, pc = _arch_configs(arch, microbatch=2)
+    jo, jstate, po, pstate = _both_states(jc, pc)
+    batch = SyntheticTokens(4, 24, jc.vocab_size, seed=3).batch_at(0)
+    js2, jm = jax.jit(jmake_step(jc, jo))(
+        jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+    ps2, pm = make_train_step(pc, po)(pstate, batch)
+    assert rel_err(pm["loss"], jm["loss"]) < 1e-4
+    assert rel_err(pm["grad_norm"], jm["grad_norm"]) < 1e-4
+    for k in ("m", "v"):
+        want = convert._state_dict(to_numpy(js2.opt[k]), pc)
+        for name, a in ps2.opt[k].items():
+            if not float(torch.as_tensor(want[name]).abs().max()):
+                assert float(a.abs().max()) == 0.0, (k, name)
+                continue
+            assert rel_err(a, want[name]) < 1e-4, (k, name)
+
+
+def test_adafactor_steps_match_reference_on_stacked_leaves():
+    """arctic-480b (reduced; Adafactor): the reference's initial state
+    carried across by train_state_from_jax, then three updates from the
+    same numpy gradients on both sides.  The port's Adafactor stacks each
+    superblock position's per-layer leaves as the reference's tree holds
+    them, so every parameter and every moment (keyed by the stacked
+    names, with the reference's shapes: (L, d) norm scales factored into
+    (L,) + (d,)) agrees at rel 1e-6 after each step."""
+    jc, pc = _arch_configs("arctic-480b")
+    assert jc.optimizer == pc.optimizer == "adafactor" and pc.n_repeat > 1
+    jo = jopt.make_optimizer(jc.optimizer, lr=1e-2)
+    po = popt.make_optimizer(pc.optimizer, lr=1e-2, cfg=pc)
+    jstate = jinit(jax.random.PRNGKey(0), jc, jo)
+    pstate = convert.train_state_from_jax(
+        (to_numpy(jstate.params), to_numpy(jstate.opt),
+         np.asarray(jstate.step)), pc, "cpu")
+    jp, js = jstate.params, jstate.opt
+    params, opt = named_params(pstate.params), pstate.opt
+    norm = opt["f"]["blocks.0.norm1.scale"]
+    assert set(norm) == {"vr", "vc"}
+    assert tuple(norm["vr"].shape) == (pc.n_repeat,)
+    rng = np.random.default_rng(4)
+    for _ in range(3):
+        grads = jax.tree.map(
+            lambda a: rng.standard_normal(a.shape).astype(np.float32), jp)
+        jp, js = jo.update(jax.tree.map(jnp.asarray, grads), js, jp)
+        tg = {k: v for k, v in convert._state_dict(grads, pc).items()}
+        params, opt = po.update(tg, opt, params)
+        want = convert._state_dict(to_numpy(jp), pc)
+        for name, a in params.items():
+            assert rel_err(a, want[name]) < 1e-6, name
+        got_f = _leaves(opt["f"])
+        want_f = _leaves(convert._adafactor_state(
+            to_numpy(js["f"]), params, pc, "cpu"))
+        assert sorted(got_f) == sorted(want_f)
+        for k in want_f:
+            assert rel_err(got_f[k], want_f[k]) < 1e-6, k
+
+
 @pytest.mark.parametrize("dtype,steps,rel", [("float32", 10, 1e-3),
                                              ("bfloat16", 1, 5e-2)])
 def test_loss_curve_matches_reference(dtype, steps, rel):
@@ -374,8 +487,8 @@ def test_launch_train_over_bundles(tmp_path):
 
 
 def test_launch_train_on_the_cpu_trains_scan_models(tmp_path):
-    """rwkv6 layers have no backward kernel on the card, but the CPU trains
-    them through the plain versions."""
+    """The CPU trains rwkv6 layers through the plain versions under
+    autograd (the card through the WKV6 backward kernel)."""
     summary, _ = launch_train.main(
         ["--device", "cpu", "--arch", "rwkv6-3b", "--reduced", "--batch", "2",
          "--seq", "16", "--steps", "1", "--workdir", str(tmp_path)])

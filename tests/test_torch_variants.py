@@ -380,13 +380,14 @@ def test_qk_norm_stack(dtype, extra):
 # ---------------------------------------------------------------------------
 
 def test_flash_wrapper_takes_d192_forward_only():
+    """D 192 (MLA) was the forward's alone until the backward kernel took
+    it too: the backward's check takes every head dim the forward takes,
+    and a head dim outside HEAD_DIMS (256) is refused by both."""
     q = torch.zeros(1, 8, 4, 192)
     kv = torch.zeros(1, 8, 2, 192)
     fak.check_args(q, kv, kv)  # the forward takes it
     fak.check_args(q.bfloat16(), kv.bfloat16(), kv.bfloat16(), window=4)
-    with pytest.raises(ValueError, match="no backward kernel"):
-        fak.check_backward_args(q, kv)
-    for d in (16, 32, 64, 128):
+    for d in (16, 32, 64, 128, 192):
         fak.check_backward_args(torch.zeros(1, 8, 4, d), torch.zeros(1, 8, 2, d))
     with pytest.raises(ValueError, match="head dim"):
         fak.check_args(torch.zeros(1, 8, 4, 256), torch.zeros(1, 8, 2, 256),

@@ -3,7 +3,7 @@
 the backward's shapes in ``chip_smoke.py`` (jag-surrogate's training
 shapes, zamba2's 512 prefill, GQA, window + softcap, D 128 with GQA, and
 the encoder archs' training shapes: whisper's encoder and cross-attention,
-llama-vision's cross-attention).
+llama-vision's cross-attention; deepseek's MLA at D 192).
 
     python3 tools/flash_bwd_variants.py [--parent DIR/flash_attention_bwd.cu]
                                         [--rounds 2]
@@ -12,7 +12,7 @@ llama-vision's cross-attention).
 stands, which picks its warp split at launch.  Each other variant is that
 source with one choice changed by an exact edit (``VARIANTS``): the split
 forced to 1, 2 or 4 warps a 16-row slice, or a launch bound of 2 blocks an
-SM at every head dim.  Every variant computes the same function, so each is
+SM at every head dim up to 128.  Every variant computes the same function, so each is
 also held to ``ref.flash_attention_bwd_tc_ref``.  ``--parent`` adds another
 ``flash_attention_bwd.cu`` with the same C entry, e.g. the parent commit's
 unpacked beside the checkout with ``git archive``.  Every variant is built
@@ -50,11 +50,13 @@ VARIANTS = {
     "split1": [(SPLIT, SPLIT + "  p.split = 1;\n")],
     "split2": [(SPLIT, SPLIT + "  p.split = 2;\n")],
     "split4": [(SPLIT, SPLIT + "  p.split = 4;\n")],
-    "two_blocks_an_sm": [("constexpr int kMinBlocks = D <= 64 ? 3 : 2;",
-                          "constexpr int kMinBlocks = 2;")],
+    # D 192's 151 KB of shared memory leaves one block an SM either way
+    "two_blocks_an_sm": [
+        ("constexpr int kMinBlocks = D <= 64 ? 3 : D <= 128 ? 2 : 1;",
+         "constexpr int kMinBlocks = D <= 128 ? 2 : 1;")],
 }
 SHAPES = ("jag_train_128", "jag_bundles_8", "zamba2_512", "D128_gqa",
-          "gqa_8_2", "window64_softcap30") + cs.BWD_ENCDEC
+          "gqa_8_2", "window64_softcap30") + cs.BWD_ENCDEC + cs.BWD_D192
 
 
 def variant_sources(parent=None):

@@ -4,10 +4,18 @@ wall time and the losses.
 
     PYTHONPATH=src python tools/mesh_step_memory.py [--batch 32] [--model 1 2 4]
     PYTHONPATH=src python tools/mesh_step_memory.py --predict 4 --model 1 2 4
+    PYTHONPATH=src python tools/mesh_step_memory.py --arch deepseek-v2-lite-16b \
+        --repeats 2 --model 2 4 [--plain-attention]
+    PYTHONPATH=src python tools/mesh_step_memory.py --arch rwkv6-3b \
+        --repeats 16 --batch 8 --predict 1 --model 1
 
-The model is llama-3.2-vision-11b at full width cut to one superblock (one
-``xattn`` and four ``attn`` layers, ~1.6 B parameters; xgates 1.0), bf16
-compute, AdamW, drawn from one seed on every card.  Card 0 first runs
+The model is ``--arch`` at full width cut to its prologue and ``--repeats``
+superblocks (default llama-3.2-vision-11b at one superblock: one ``xattn``
+and four ``attn`` layers, ~1.6 B parameters; xgates 1.0), bf16 compute,
+its optimizer, drawn from one seed on every card.  ``--plain-attention``
+sets ``use_pallas="never"``: every layer runs its plain PyTorch version
+(a package without a kernel's backward can then train the model, for an
+A/B of the rest of the step).  Card 0 first runs
 ``--steps`` unsharded steps; then every card, one NCCL rank each, places
 the same state on a (cards / N, N) ``("data", "model")`` mesh for each N of
 ``--model`` in turn with ``trainstep.shard_state`` and runs the same
@@ -25,7 +33,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import socket
 import subprocess
 import sys
@@ -36,10 +43,18 @@ import torch
 LOSS_REL = 5e-2
 
 
-def _cfg():
+def _cfg(arch="llama-3.2-vision-11b", repeats=1, plain=False):
     from repro_torch.configs import registry
-    full = registry.get_config("llama-3.2-vision-11b")
-    return full.replace(n_repeat=1, n_layers=len(full.superblock))
+    full = registry.get_config(arch)
+    cfg = full.replace(n_repeat=repeats, n_layers=len(full.prologue)
+                       + repeats * len(full.superblock))
+    return cfg.replace(use_pallas="never") if plain else cfg
+
+
+def _optimizer(cfg):
+    """The config's optimizer at lr 3e-4."""
+    from repro_torch.train.optimizer import make_optimizer
+    return make_optimizer(cfg.optimizer, lr=3e-4, cfg=cfg)
 
 
 def _state(cfg, opt, dev):
@@ -52,12 +67,16 @@ def _state(cfg, opt, dev):
     return state
 
 
-def _batches(cfg, batch, steps):
+def _batches(cfg, batch, steps, seq=128):
     from repro_torch.data.pipeline import SyntheticTokens
     from repro_torch.launch.train import with_extras
-    data = with_extras(SyntheticTokens(batch, 128, cfg.vocab_size),
-                       {"img_embed": ((batch, cfg.n_img_tokens, cfg.d_vision),
-                                      "bfloat16")})
+    extras = {}
+    if cfg.n_img_tokens:
+        extras["img_embed"] = ((batch, cfg.n_img_tokens, cfg.d_vision),
+                               "bfloat16")
+    if cfg.n_enc_layers:
+        extras["enc_embed"] = ((batch, cfg.enc_len, cfg.d_model), "bfloat16")
+    data = with_extras(SyntheticTokens(batch, seq, cfg.vocab_size), extras)
     return [next(data) for _ in range(steps)]
 
 
@@ -78,19 +97,19 @@ def _run(step, state, batches, dev):
             "peak_bytes": torch.cuda.max_memory_allocated(dev)}
 
 
-def rank_main(rank, world, port, batch, steps, models, out_path):
+def rank_main(rank, world, port, batch, steps, models, out_path, cfg_args,
+              seq):
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
-    from repro_torch.train.optimizer import make_optimizer
     from repro_torch.train.trainstep import make_train_step, shard_state
     dev = torch.device("cuda", rank)
     torch.cuda.set_device(dev)
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=world, device_id=dev)
     try:
-        cfg = _cfg()
-        opt = make_optimizer(cfg.optimizer, lr=3e-4)
-        batches = _batches(cfg, batch, steps)
+        cfg = _cfg(*cfg_args)
+        opt = _optimizer(cfg)
+        batches = _batches(cfg, batch, steps, seq)
         runs = {}
         if rank == 0:
             state = _state(cfg, opt, dev)
@@ -122,7 +141,7 @@ def rank_main(rank, world, port, batch, steps, models, out_path):
         dist.destroy_process_group()
 
 
-def predict(cards, batch, models, out) -> int:
+def predict(cards, batch, models, out, cfg_args, seq=128) -> int:
     """The dry run's prediction of the same steps on meta tensors, on this
     host's CPU: a fake group of ``cards`` ranks, each (cards / N, N) mesh
     of ``models`` (``--predict 1 --model 1`` stands for one card): per card the
@@ -131,8 +150,8 @@ def predict(cards, batch, models, out) -> int:
     from torch.distributed.device_mesh import DeviceMesh
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
-    cfg = _cfg()
-    shape = ShapeConfig("mesh_step_memory", "train", 128, batch)
+    cfg = _cfg(*cfg_args)
+    shape = ShapeConfig("mesh_step_memory", "train", seq, batch)
     dryrun.fake_group(cards)
     rows = []
     for model in models:
@@ -160,6 +179,7 @@ def predict(cards, batch, models, out) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--model", type=int, nargs="+", default=[1],
                     help="model-axis sizes, one (cards / N, N) mesh each")
@@ -167,9 +187,16 @@ def main(argv=None) -> int:
     ap.add_argument("--predict", type=int, metavar="CARDS", default=None,
                     help="no card: print the dry run's prediction for "
                          "CARDS cards on the CPU")
+    ap.add_argument("--arch", default="llama-3.2-vision-11b")
+    ap.add_argument("--repeats", type=int, default=1,
+                    help="superblock repeats after the prologue")
+    ap.add_argument("--plain-attention", action="store_true",
+                    help="use_pallas='never': plain versions, no kernels")
     args = ap.parse_args(argv)
+    cfg_args = (args.arch, args.repeats, args.plain_attention)
     if args.predict:
-        return predict(args.predict, args.batch, args.model, args.out)
+        return predict(args.predict, args.batch, args.model, args.out,
+                       cfg_args, args.seq)
     world = torch.cuda.device_count()
     if world < 2:
         print("mesh_step_memory: needs at least two cards", file=sys.stderr)
@@ -183,7 +210,8 @@ def main(argv=None) -> int:
         port = sock.getsockname()[1]
     torch.multiprocessing.spawn(rank_main, args=(world, port, args.batch,
                                                  args.steps, args.model,
-                                                 args.out),
+                                                 args.out, cfg_args,
+                                                 args.seq),
                                 nprocs=world)
     runs = json.load(open(args.out))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -199,7 +227,10 @@ def main(argv=None) -> int:
             run["losses"], runs["unsharded"]["losses"]))
         worst = max(worst, rel)
         print(json.dumps({
+            "arch": args.arch, "repeats": args.repeats,
+            "plain_attention": args.plain_attention,
             "cards": world, "card": card, "batch": args.batch,
+            "seq": args.seq,
             "mesh_shape": run["mesh_shape"], "loss_rel": rel,
             "loss_rel_bar": LOSS_REL,
             "peak_gb_unsharded": runs["unsharded"]["peak_bytes"] / 1e9,
