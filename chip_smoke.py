@@ -12,9 +12,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      and the scans' backward kernels are reported); then the tensor-core
      instructions of each kernel function (cuobjdump -sass), which every
      bf16 instance of the flash forward (D 16-192), the flash backward's
-     tensor-core grid (D 16-192), WKV6 and SSD must have, 25 in all (the
-     fp32 kernels, the backward's D_i pass and the scans' backward kernels
-     report 0);
+     tensor-core grid (D 16-192), WKV6 and SSD, and the scans' bf16
+     backward kernels (chunk summaries and chunk / sub-tile gradients) must
+     have, 55 in all (the fp32 kernels, the backward's D_i pass, the scans'
+     chunk scan and sum kernels report 0);
   3. each kernel against its plain PyTorch version on the card, at the
      main paths' shapes and the edge cases, with the tolerance stated, and
      device times of kernel, plain version and PyTorch's own call (where
@@ -36,9 +37,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      a training microbatch of the bundles and at 8 x 128.  The scans'
      backward kernels are held to ref.wkv6_scan_bwd_ref /
      ref.ssd_scan_bwd_ref at WKV_BWD_SHAPES / SSD_BWD_SHAPES (the training
-     shapes, ragged S, float32, WKV6 decays at the clip), their autograd
-     Functions to the direct calls, and timed against their bound (bytes,
-     or the products at the bf16 peak; no one PyTorch call computes them);
+     shapes, 4096-step rows, ragged S, every bf16 head size: WKV6's D
+     16 / 32 / 64 and SSD's twelve P x N pairs, SSD's one-group path,
+     float32, WKV6 decays at the clip), in bf16 also to the mirrors of their rounding
+     points (ref.*_scan_bwd_tc_ref); two calls must give bitwise-equal
+     gradients and the autograd Functions the direct calls'; timed against
+     their bound (bytes, or the products at the bf16 peak; no one PyTorch
+     call computes them);
   4. serve: jag-surrogate, rwkv6-3b, zamba2-1.2b, phi4-mini-3.8b,
      whisper-tiny and llama-3.2-vision-11b at full width and full depth,
      deepseek-v2-lite-16b at full width and 14 of its 27 layers (the dense
@@ -357,32 +362,53 @@ SSD_SHAPES = [
 ]
 SSD_MAIN = ("zamba2_prefill_512", "zamba2_prefill_200", "zamba2_prefill_32")
 # The scans' backward kernels, held to ref.wkv6_scan_bwd_ref /
-# ref.ssd_scan_bwd_ref (chunk 16) at SCAN_REL: (name, B, S, H, D, decay,
-# dtype) and (name, B, S, H, P, N, decay, dtype).  A train phase's
-# microbatch is one row of the quickstart's bundles (8 tokens: the main
-# path, first), then a 128-token microbatch of 8 rows, ragged S, float32,
-# and WKV6 decays at the clip; S past the kernels' 64-step chunks at every
-# head size (a chunk holds 4, 16 or 64 steps of recomputed segments).
+# ref.ssd_scan_bwd_ref (chunk 16) at SCAN_REL, in bf16 also to the mirrors
+# ref.*_scan_bwd_tc_ref: (name, B, S, H, D, decay, dtype) and (name, B, S,
+# H, P, N, decay, dtype).  A train phase's microbatch is one row of the
+# quickstart's bundles (8 tokens: the main path, first), then a 128-token
+# microbatch of 8 rows, one row of the reference's train_4k length (4096
+# steps: 64 chunks), ragged S, WKV6 decays at the clip, every bf16 head size
+# (WKV6 D 16 / 32 / 64; SSD P 16 / 32 / 64 with each N of 16 / 32 / 64 /
+# 128, the kernel's twelve instances) within a 16-step sub-tile and over
+# several chunks, SSD's one group of all heads (4 heads a block: dB and dC
+# written whole, no partial rows), and float32 (PR 23's kernel) past its
+# 64-step chunks at every head size.
 WKV_BWD_SHAPES = [
     ("rwkv6_train_bundles", 1, 8, 40, 64, "sigmoid", BF16),
     ("rwkv6_train_128", 8, 128, 40, 64, "sigmoid", BF16),
+    ("rwkv6_train_4096", 1, 4096, 40, 64, "sigmoid", BF16),
     ("rwkv6_train_128_clip", 8, 128, 40, 64, "strong", BF16),
     ("bf16_ragged_77_clip", 2, 77, 40, 64, "strong", BF16),
+    ("bf16_D32_S17_clip", 2, 17, 4, 32, "strong", BF16),
+    ("bf16_D16_ragged_150", 1, 150, 2, 16, "sigmoid", BF16),
     ("f32_D64", 2, 64, 4, 64, "sigmoid", F32),
     ("f32_D32_ragged_clip", 1, 137, 3, 32, "strong", F32),
     ("f32_D16", 1, 150, 2, 16, "sigmoid", F32),
 ]
-WKV_BWD_TIMED = ("rwkv6_train_bundles", "rwkv6_train_128")
+WKV_BWD_TIMED = ("rwkv6_train_bundles", "rwkv6_train_128", "rwkv6_train_4096")
 SSD_BWD_SHAPES = [
     ("zamba2_train_bundles", 1, 8, 64, 64, 64, "normal", BF16),
     ("zamba2_train_128", 8, 128, 64, 64, 64, "normal", BF16),
+    ("zamba2_train_4096", 1, 4096, 64, 64, 64, "normal", BF16),
     ("bf16_ragged_77", 2, 77, 64, 64, 64, "normal", BF16),
     ("bf16_strong_128", 2, 128, 64, 64, 64, "strong", BF16),
+    ("bf16_P16_N16_S8", 2, 8, 4, 16, 16, "normal", BF16),
+    ("bf16_P32_N128_ragged", 1, 137, 3, 32, 128, "normal", BF16),
+    ("bf16_P16_N32_ragged", 2, 137, 3, 16, 32, "normal", BF16),
+    ("bf16_P16_N64_ragged", 1, 137, 3, 16, 64, "normal", BF16),
+    ("bf16_P16_N128_strong", 1, 137, 2, 16, 128, "strong", BF16),
+    ("bf16_P32_N16_ragged", 2, 137, 3, 32, 16, "normal", BF16),
+    ("bf16_P32_N32_ragged", 1, 137, 3, 32, 32, "normal", BF16),
+    ("bf16_P32_N64_one_group", 4, 2112, 4, 32, 64, "normal", BF16),
+    ("bf16_P64_N16_ragged", 1, 137, 3, 64, 16, "normal", BF16),
+    ("bf16_P64_N32_ragged", 2, 137, 2, 64, 32, "normal", BF16),
+    ("bf16_P64_N128_ragged", 1, 137, 3, 64, 128, "normal", BF16),
     ("f32_P64", 2, 64, 4, 64, 64, "normal", F32),
     ("f32_P32_N128_ragged", 1, 137, 3, 32, 128, "normal", F32),
     ("f32_P16_N16", 1, 150, 2, 16, 16, "normal", F32),
 ]
-SSD_BWD_TIMED = ("zamba2_train_bundles", "zamba2_train_128")
+SSD_BWD_TIMED = ("zamba2_train_bundles", "zamba2_train_128",
+                 "zamba2_train_4096")
 # float32-compute serve run against its plain run: rounding only
 FP32_SERVE_REL = 1e-3
 
@@ -566,8 +592,8 @@ def phase_build():
         d192_bwd_spill_bytes=_spills("flash_attention_bwd",
                                      r"flash_bwd_\w+ILi192E"),
         scan_bwd_spill_bytes={
-            **_spills("wkv6_scan_bwd", r"wkv6_bwd_kernel"),
-            **_spills("ssd_scan_bwd", r"ssd_bwd_kernel")})
+            **_spills("wkv6_scan_bwd", r"wkv\w*_kernel"),
+            **_spills("ssd_scan_bwd", r"ssd_\w*_kernel")})
     missing = sorted(set(KERNELS) - set(libs))
     if missing:
         raise RuntimeError(f"libraries missing after build: {missing}")
@@ -595,10 +621,11 @@ def _spills(lib, pattern):
 def phase_sass():
     """Tensor-core instructions (HMMA, HGMMA) per kernel function of each
     built library, read from ``cuobjdump -sass``.  Every bf16 instance of
-    the flash forward and backward, WKV6 and SSD must have some: their
-    products run on the tensor cores (5 flash forward and 5 flash backward
-    head dims, 3 WKV head dims, 3 x 4 SSD P and N).  The scans' backward
-    kernels sum in fp32 on the CUDA cores and report 0."""
+    the flash forward and backward, WKV6 and SSD, and of the scans' bf16
+    backward kernels must have some: their products run on the tensor
+    cores (5 flash forward and 5 flash backward head dims, 3 WKV head dims,
+    3 x 4 SSD P and N; the backward's chunk summaries and chunk / sub-tile
+    gradients: 2 x 3 WKV6, 2 x 12 SSD)."""
     nvcc = env.nvcc_path()
     tool = shutil.which("cuobjdump") or (
         os.path.join(os.path.dirname(nvcc), "cuobjdump") if nvcc else None)
@@ -621,11 +648,13 @@ def phase_sass():
     bf16 = [fn for fn in counts if "flash_fwd_bf16" in fn
             or "flash_bwd_bf16" in fn
             or ("wkv6_kernel" in fn and "bfloat16" in fn)
-            or "ssd_tc_kernel" in fn]
-    if len(bf16) != 25 or not all(counts[fn] for fn in bf16):
+            or "ssd_tc_kernel" in fn
+            or re.search(r"wkv_su[mb]_kernel|ssd_(sum|chunk)_kernel", fn)]
+    if len(bf16) != 55 or not all(counts[fn] for fn in bf16):
         raise RuntimeError(f"bf16 flash forward / flash backward / WKV6 / "
-                           f"SSD instances without tensor-core instructions "
-                           f"(or not 25 of them): {counts}")
+                           f"SSD / scan backward instances without "
+                           f"tensor-core instructions (or not 55 of them): "
+                           f"{counts}")
 
 
 def phase_flash(dev):
@@ -715,9 +744,9 @@ def wkv_bwd_work(r, k, v, w, u, dy):
     """Bytes (r, k, v, dy read and dr, dk, dv written in r's dtype; w, u
     read and dw, du written in float32; each once) and the backward's
     state products (kernels/flops.scan_flops: 6 D x D a token and head)
-    at the tensor cores' bf16 peak, as for every kernel: the forward does
-    these products on mma.sync, so the scalar fp32 backward is held to
-    what the card could do, not to what it does."""
+    at the tensor cores' bf16 peak, as for every kernel: the bf16 kernel
+    runs them on mma.sync (the float32 kernel, PR 23's, on the CUDA cores
+    is held to the same bound)."""
     nbytes = 7 * r.numel() * r.element_size() + 2 * (w.numel() + u.numel()) * 4
     return _bound(nbytes, kflops.scan_flops(r, r.shape[-1], backward=True))
 
@@ -791,14 +820,15 @@ def phase_scan(dev, name, mod, plain, shapes, main, make, work):
     return errs, timing
 
 
-def phase_scan_backward(dev, name, fwd, bwd, plain, shapes, timed, make,
-                        work):
+def phase_scan_backward(dev, name, fwd, bwd, plain, mirror, shapes, timed,
+                        make, work):
     """One scan's backward kernel (``bwd``) against its plain version at
-    every shape, on an output gradient drawn in the inputs' dtype; the
-    autograd Function (``fwd`` under grad, then ``backward``) gives the
-    same gradients as the direct call.  Timed at ``timed`` beside the plain
-    version and the bound; no one PyTorch call computes it (library
-    None)."""
+    every shape, on an output gradient drawn in the inputs' dtype, in bf16
+    also against the mirror of its rounding points (``mirror``); a second
+    call gives bitwise-equal gradients, and the autograd Function (``fwd``
+    under grad, then ``backward``) the same gradients as the direct call.
+    Timed at ``timed`` beside the plain version and the bound; no one
+    PyTorch call computes it (library None)."""
     gen = torch.Generator(device=dev).manual_seed(6)
     errs, timing = {}, {}
     for shape, *dims, dt in shapes:
@@ -806,23 +836,29 @@ def phase_scan_backward(dev, name, fwd, bwd, plain, shapes, timed, make,
         dy = torch.randn(args[0].shape, generator=gen, device=dev).to(dt)
         got = bwd(*args, dy)
         torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, bwd(*args, dy)))
         want = plain(*args, dy, chunk=16)
         rels = [_rel(a, b) for a, b in zip(got, want)]
+        mirror_rels = None if dt == F32 else [
+            _rel(a, b) for a, b in zip(got, mirror(*args, dy))]
         xs = [a.detach().clone().requires_grad_() for a in args]
         fwd(*xs).backward(dy)
         same = all(torch.equal(x.grad, g) for x, g in zip(xs, got))
         err = max(float((a.float() - b.float()).abs().max())
                   for a, b in zip(got, want))
         ok = bool(all(torch.isfinite(g.float()).all() for g in got)
-                  and max(rels) < SCAN_REL[dt] and same)
+                  and max(rels + (mirror_rels or [])) < SCAN_REL[dt]
+                  and same and bitwise)
         errs[shape] = err
         say("kernel_vs_plain", kernel=name, shape=shape, dims=dims,
             dtype=str(dt).split(".")[-1], max_abs_err=err, rel_err=rels,
-            rel_tol=SCAN_REL[dt], autograd_equals_direct=same, ok=ok)
+            tc_mirror_rel_err=mirror_rels, rel_tol=SCAN_REL[dt],
+            bitwise_equal_calls=bitwise, autograd_equals_direct=same, ok=ok)
         if not ok:
             raise RuntimeError(f"{name} disagrees with its plain version at "
-                               f"{shape}: rel errs {rels}, autograd equal "
-                               f"{same}")
+                               f"{shape}: rel errs {rels}, mirror "
+                               f"{mirror_rels}, autograd equal {same}, two "
+                               f"calls equal {bitwise}")
         if shape in timed:
             t = timing[shape] = {
                 "ms": device_ms(lambda: bwd(*args, dy)),
@@ -981,7 +1017,9 @@ _COPY = ("copy", "cast")
 # the scans' kernel functions (csrc/*.cu), forward and backward
 _SCAN_FWD = ("wkv6_kernel", "ssd_tc_kernel", "ssd_f32_kernel")
 _SCAN_BWD = ("wkv6_bwd_kernel", "ssd_bwd_kernel", "sum_rows_kernel",
-             "sum_mid_kernel")
+             "sum_mid_kernel", "wkv_sum_kernel", "wkv_sub_kernel",
+             "ssd_sum_kernel", "ssd_chunk_kernel", "ssd_finish_kernel",
+             "scan_chunks_kernel")
 
 
 def _device_groups(fn):
@@ -2741,15 +2779,16 @@ def main() -> int:
                                    work)
         timing[name] = t[main_[0]]
         main_shapes[name] = main_
-    for name, fwd, bwd, plain, shapes, timed, make, work in (
+    for name, fwd, bwd, plain, mirror, shapes, timed, make, work in (
             ("wkv6_scan_bwd", wkvk.wkv6_scan, wkvk.wkv6_scan_bwd,
-             ref.wkv6_scan_bwd_ref, WKV_BWD_SHAPES, WKV_BWD_TIMED,
-             wkv_inputs, wkv_bwd_work),
+             ref.wkv6_scan_bwd_ref, ref.wkv6_scan_bwd_tc_ref,
+             WKV_BWD_SHAPES, WKV_BWD_TIMED, wkv_inputs, wkv_bwd_work),
             ("ssd_scan_bwd", ssdk.ssd_scan, ssdk.ssd_scan_bwd,
-             ref.ssd_scan_bwd_ref, SSD_BWD_SHAPES, SSD_BWD_TIMED,
-             ssd_inputs, ssd_bwd_work)):
+             ref.ssd_scan_bwd_ref, ref.ssd_scan_bwd_tc_ref, SSD_BWD_SHAPES,
+             SSD_BWD_TIMED, ssd_inputs, ssd_bwd_work)):
         errs[name], t = phase_scan_backward(dev, name, fwd, bwd, plain,
-                                            shapes, timed, make, work)
+                                            mirror, shapes, timed, make,
+                                            work)
         timing[name] = t[timed[0]]
         main_shapes[name] = timed[:1]
     _free()

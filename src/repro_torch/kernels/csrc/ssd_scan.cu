@@ -259,21 +259,12 @@ struct Tc {
       512 / NT * (BYTES + 1024) <= 228 * 1024 ? 512 / NT : 1;
 };
 
-// (v0, v1) as bf16 pairs hi = bf16(v) and lo = bf16(v - hi)
-__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = tc::pack_bf16(v0 - hf.x, v1 - hf.y);
-}
-
 // a bf16 pair times a, split
 __device__ __forceinline__ void scale_split2(uint32_t v, float a, uint32_t& hi,
                                              uint32_t& lo) {
   const float2 f =
       __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
-  split2(f.x * a, f.y * a, hi, lo);
+  tc::split_pair(f.x * a, f.y * a, hi, lo);
 }
 
 template <int P, int N>
@@ -494,10 +485,10 @@ __global__ void __launch_bounds__(Tc<P, N>::NT, Tc<P, N>::MIN_BLOCKS)
       }
       // the accumulators of the two 8-column tiles are W's A fragment
       uint32_t wh[4], wl[4];
-      split2(cb[0][0], cb[0][1], wh[0], wl[0]);
-      split2(cb[0][2], cb[0][3], wh[1], wl[1]);
-      split2(cb[1][0], cb[1][1], wh[2], wl[2]);
-      split2(cb[1][2], cb[1][3], wh[3], wl[3]);
+      tc::split_pair(cb[0][0], cb[0][1], wh[0], wl[0]);
+      tc::split_pair(cb[0][2], cb[0][3], wh[1], wl[1]);
+      tc::split_pair(cb[1][0], cb[1][1], wh[2], wl[2]);
+      tc::split_pair(cb[1][2], cb[1][3], wh[3], wl[3]);
 #pragma unroll
       for (int pn = 0; pn < NX / 2; ++pn) {
         uint32_t bx[4];
@@ -556,10 +547,10 @@ __global__ void __launch_bounds__(Tc<P, N>::NT, Tc<P, N>::MIN_BLOCKS)
       if (j >= SN) break;
       const int o = (p0 + 16 * mt + g) * NP + 8 * j + 2 * q4;
       uint32_t hi, lo;
-      split2(sacc[i][0], sacc[i][1], hi, lo);
+      tc::split_pair(sacc[i][0], sacc[i][1], hi, lo);
       *reinterpret_cast<uint32_t*>(hs + o) = hi;
       *reinterpret_cast<uint32_t*>(hs_lo + o) = lo;
-      split2(sacc[i][2], sacc[i][3], hi, lo);
+      tc::split_pair(sacc[i][2], sacc[i][3], hi, lo);
       *reinterpret_cast<uint32_t*>(hs + o + 8 * NP) = hi;
       *reinterpret_cast<uint32_t*>(hs_lo + o + 8 * NP) = lo;
     }

@@ -97,4 +97,165 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// (v0, v1) as bf16 pairs hi = bf16(v) and lo = bf16(v - hi): together about
+// 16 mantissa bits.
+__device__ __forceinline__ void split_pair(float v0, float v1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(v0 - hf.x, v1 - hf.y);
+}
+
+// The accumulators of two neighbouring 8-column tiles (a 16 x 16 block) as
+// the split A fragment of a product over those 16 columns.
+__device__ __forceinline__ void frag_split(const float (&c0)[4],
+                                           const float (&c1)[4],
+                                           uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+  split_pair(c0[0], c0[1], hi[0], lo[0]);
+  split_pair(c0[2], c0[3], hi[1], lo[1]);
+  split_pair(c1[0], c1[1], hi[2], lo[2]);
+  split_pair(c1[2], c1[3], hi[3], lo[3]);
+}
+
+// Warp-level products of one 16-row strip, bf16 in shared memory, fp32
+// accumulators acc[j] for the 8-column tiles j < 2 NP of the output.
+// A is 16 x 16 KT row-major at a (leading dimension lda elements).
+// mma_nt: B is given as its transpose, (16 NP) x (16 KT) row-major at b:
+//   acc += A . B^T.
+template <int KT, int NP>
+__device__ __forceinline__ void mma_nt(float (&acc)[2 * NP][4],
+                                       const __nv_bfloat16* a, int lda,
+                                       const __nv_bfloat16* b, int ldb) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int kc = 0; kc < KT; ++kc) {
+    uint32_t af[4];
+    ldsm_x4(af, a + (lane % 16) * lda + 16 * kc + (lane / 16) * 8);
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn) {
+      uint32_t bf[4];
+      ldsm_x4(bf, b + (16 * pn + lane % 8 + (lane / 16) * 8) * ldb +
+                      16 * kc + ((lane / 8) % 2) * 8);
+      mma_bf16(acc[2 * pn], af, bf[0], bf[1]);
+      mma_bf16(acc[2 * pn + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// mma_nn: B is (16 KT) x (16 NP) row-major at b: acc += A . B.
+template <int KT, int NP>
+__device__ __forceinline__ void mma_nn(float (&acc)[2 * NP][4],
+                                       const __nv_bfloat16* a, int lda,
+                                       const __nv_bfloat16* b, int ldb) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int kc = 0; kc < KT; ++kc) {
+    uint32_t af[4];
+    ldsm_x4(af, a + (lane % 16) * lda + 16 * kc + (lane / 16) * 8);
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn) {
+      uint32_t bx[4];
+      ldsm_x4_trans(bx, b + (16 * kc + lane % 16) * ldb + 16 * pn +
+                            (lane / 16) * 8);
+      mma_bf16(acc[2 * pn], af, bx[0], bx[1]);
+      mma_bf16(acc[2 * pn + 1], af, bx[2], bx[3]);
+    }
+  }
+}
+
+// The split forms: one operand given as hi and lo, the other loaded once
+// for both products (acc += A . B_lo + A . B_hi, or A_lo . B + A_hi . B).
+// mma_frag_nn: A from registers (a 16 x 16 fragment from frag_split) times
+// rows 0 .. 15 of B, (16 NP) columns row-major at b.
+template <int KT, int NP>
+__device__ __forceinline__ void mma_nt2(float (&acc)[2 * NP][4],
+                                        const __nv_bfloat16* a, int lda,
+                                        const __nv_bfloat16* bhi,
+                                        const __nv_bfloat16* blo, int ldb) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int kc = 0; kc < KT; ++kc) {
+    uint32_t af[4];
+    ldsm_x4(af, a + (lane % 16) * lda + 16 * kc + (lane / 16) * 8);
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn) {
+      const int o = (16 * pn + lane % 8 + (lane / 16) * 8) * ldb + 16 * kc +
+                    ((lane / 8) % 2) * 8;
+      uint32_t bh[4], bl[4];
+      ldsm_x4(bh, bhi + o);
+      ldsm_x4(bl, blo + o);
+      mma_bf16(acc[2 * pn], af, bl[0], bl[1]);
+      mma_bf16(acc[2 * pn + 1], af, bl[2], bl[3]);
+      mma_bf16(acc[2 * pn], af, bh[0], bh[1]);
+      mma_bf16(acc[2 * pn + 1], af, bh[2], bh[3]);
+    }
+  }
+}
+
+template <int KT, int NP>
+__device__ __forceinline__ void mma_nn2(float (&acc)[2 * NP][4],
+                                        const __nv_bfloat16* a, int lda,
+                                        const __nv_bfloat16* bhi,
+                                        const __nv_bfloat16* blo, int ldb) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int kc = 0; kc < KT; ++kc) {
+    uint32_t af[4];
+    ldsm_x4(af, a + (lane % 16) * lda + 16 * kc + (lane / 16) * 8);
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn) {
+      const int o = (16 * kc + lane % 16) * ldb + 16 * pn + (lane / 16) * 8;
+      uint32_t bh[4], bl[4];
+      ldsm_x4_trans(bh, bhi + o);
+      ldsm_x4_trans(bl, blo + o);
+      mma_bf16(acc[2 * pn], af, bl[0], bl[1]);
+      mma_bf16(acc[2 * pn + 1], af, bl[2], bl[3]);
+      mma_bf16(acc[2 * pn], af, bh[0], bh[1]);
+      mma_bf16(acc[2 * pn + 1], af, bh[2], bh[3]);
+    }
+  }
+}
+
+template <int NP>
+__device__ __forceinline__ void mma_frag_nn(float (&acc)[2 * NP][4],
+                                             const uint32_t (&ahi)[4],
+                                             const uint32_t (&alo)[4],
+                                             const __nv_bfloat16* b,
+                                             int ldb) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int pn = 0; pn < NP; ++pn) {
+    uint32_t bx[4];
+    ldsm_x4_trans(bx, b + (lane % 16) * ldb + 16 * pn + (lane / 16) * 8);
+    mma_bf16(acc[2 * pn], alo, bx[0], bx[1]);
+    mma_bf16(acc[2 * pn + 1], alo, bx[2], bx[3]);
+    mma_bf16(acc[2 * pn], ahi, bx[0], bx[1]);
+    mma_bf16(acc[2 * pn + 1], ahi, bx[2], bx[3]);
+  }
+}
+
+// mma_tn: A given as its transpose, (16 KT) x 16 row-major at at (the
+// strip's 16 columns of it), B (16 KT) x (8 NT) row-major at b:
+//   acc += A . B, A[m][k] = at[k][m].
+template <int KT, int NT>
+__device__ __forceinline__ void mma_tn(float (&acc)[NT][4],
+                                       const __nv_bfloat16* at, int ldt,
+                                       const __nv_bfloat16* b, int ldb) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int kc = 0; kc < KT; ++kc) {
+    uint32_t af[4];
+    ldsm_x4_trans(af, at + (16 * kc + lane % 8 + (lane / 16) * 8) * ldt +
+                          ((lane / 8) % 2) * 8);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      uint32_t bf[2];
+      ldsm_x2_trans(bf, b + (16 * kc + lane % 16) * ldb + 8 * j);
+      mma_bf16(acc[j], af, bf[0], bf[1]);
+    }
+  }
+}
+
 }  // namespace tc

@@ -29,7 +29,9 @@ decode step, plain on every device as in the reference.  The three mirrors
 are for tests only: no served path calls them.  ``wkv6_scan_bwd_ref`` and
 ``ssd_scan_bwd_ref`` are the plain versions of the scans' backward kernels:
 the gradients written out chunk by chunk, with no autograd (tests, the card's
-yardstick, and the dry run's counted backward).
+yardstick, and the dry run's counted backward); ``wkv6_scan_bwd_tc_ref`` and
+``ssd_scan_bwd_tc_ref`` mirror the bf16 backward kernels' chunk-parallel
+order and split products (tests only).
 """
 from __future__ import annotations
 
@@ -427,6 +429,88 @@ def ssd_scan_bwd_ref(x, dt, A, B_, C, dy, *, chunk=64):
             torch.cat(dC, 1)[:, :S].to(C.dtype))
 
 
+def _excl_cumsum(t, dim):
+    """Exclusive cumsum along ``dim``: the running sum before each entry."""
+    return torch.cumsum(t, dim) - t
+
+
+def ssd_scan_bwd_tc_ref(x, dt, A, B_, C, dy, *, chunk=64):
+    """Plain mirror of the bf16 SSD backward kernel: ``ssd_scan_bwd_ref``'s
+    gradients in the kernel's chunk-parallel order and at its rounding
+    points.  (a) Each 64-step chunk's summaries G = xᵀ (tail dt B) and
+    Q = dyᵀ (exp(acs) C) with the scaled operand split (``_split_einsum``);
+    (b) the scan over chunks (``_states_entering`` / ``_exit_grads``);
+    (c) each chunk on its own, every product an L x L strip or an input
+    times a split operand: dx = dt (Mᵀ dy + exp(acs_L - acs) B g_outᵀ) with
+    M = C Bᵀ decayed; dC = M2 B + exp(acs) dy h_in with M2 = dy xᵀ decayed
+    times dt; dB = dt (M3ᵀ C + exp(acs_L - acs) x g_out); and the decay's
+    gradient <Gh_t, a_t h_{t-1}> expanded into the corner sums of
+    Z = M2 o C Bᵀ (τ >= t > s), a reverse cumsum of the h_in side, a
+    cumsum of the g_out side and exp(acs_L) <g_out, h_in>: every exponent
+    a difference of cumsums <= 0, nothing cancels.  Any S (padded with
+    x = dt = 0).  For float32 nothing is rounded.  No training path calls
+    it."""
+    op = x.dtype
+    Bb, S, H, P = x.shape
+    N = B_.shape[-1]
+    L = chunk
+    nc = -(-S // L)
+    Sp = nc * L
+    xf, yf = (_pad_time(t, Sp).reshape(Bb, nc, L, H, P) for t in (x, dy))
+    dtf = _pad_time(dt, Sp).reshape(Bb, nc, L, H)
+    Bf, Cf = (_pad_time(t, Sp).reshape(Bb, nc, L, N) for t in (B_, C))
+    Af = A.float()
+    acs = torch.cumsum(Af * dtf, dim=2)  # (B,nc,L,H)
+    acs_l = acs[:, :, -1:]  # the chunk's last row (past S: dt = 0)
+    tail = torch.exp(acs_l - acs)  # (B,nc,L,H)
+    # (a) + (b)
+    G = _split_einsum("bcshp,bcshn->bchpn", xf,
+                      (tail * dtf)[..., None] * Bf[:, :, :, None], op)
+    Q = _split_einsum("bcthp,bcthn->bchpn", yf,
+                      torch.exp(acs)[..., None] * Cf[:, :, :, None], op)
+    dec = torch.exp(acs_l[:, :, 0])[..., None, None]  # (B,nc,H,1,1)
+    h_in = _states_entering(G, dec)
+    g_out = _exit_grads(Q, dec)
+    # (c): rows t, columns s (or τ) of each chunk, per head
+    t_ge_s = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+    ah = acs.permute(0, 1, 3, 2)  # (B,nc,H,L)
+    dts = dtf.permute(0, 1, 3, 2)
+    # exp(acs_t - acs_s) for s <= t
+    E = torch.exp(torch.where(t_ge_s, ah[..., :, None] - ah[..., None, :],
+                              -torch.inf))
+    cb = torch.einsum("bctn,bcsn->bcts", Cf, Bf)[:, :, None]  # (B,nc,1,t,s)
+    dx_ = torch.einsum("bcthp,bcshp->bchts", yf, xf)  # dy_t . x_s
+    MT = (cb * E).transpose(-1, -2)  # [t, τ] = C_τ.B_t exp(acs_τ - acs_t)
+    M2 = dx_ * E * dts[..., None, :]  # [t, s]
+    M3T = (dx_ * E).transpose(-1, -2)  # [t, τ] = x_t.dy_τ exp(..)
+    tl = tail.permute(0, 1, 3, 2)[..., None]  # (B,nc,H,L,1)
+    et = torch.exp(ah)[..., None]
+    bg = _split_einsum("bctn,bchpn->bchtp", Bf, g_out, op)  # B_t g_out^T
+    dxr = _split_einsum("bchtu,bcuhp->bchtp", MT, yf, op) + tl * bg
+    dx = dts[..., None] * dxr
+    dB = dts[..., None] * (_split_einsum("bchtu,bcun->bchtn", M3T, Cf, op)
+                           + tl * _split_einsum("bcthp,bchpn->bchtn", xf,
+                                                g_out, op))
+    dC = _split_einsum("bchts,bcsn->bchtn", M2, Bf, op) \
+        + et * _split_einsum("bcthp,bchpn->bchtn", yf, h_in, op)
+    ch = _split_einsum("bctn,bchpn->bchtp", Cf, h_in, op)  # C_t h_in^T
+    xt, yt = xf.permute(0, 1, 3, 2, 4), yf.permute(0, 1, 3, 2, 4)
+    u = et[..., 0] * (yt * ch).sum(-1)  # (B,nc,H,L)
+    v = tl[..., 0] * dts * (xt * bg).sum(-1)
+    kk = torch.exp(acs_l[:, :, 0]) * (g_out * h_in).sum((-1, -2))  # (B,nc,H)
+    Z = M2 * cb  # [τ, s], s <= τ
+    corner = (torch.where(t_ge_s, _excl_cumsum(Z, -1), 0.0)).sum(-2)
+    dla = corner + torch.flip(torch.cumsum(torch.flip(u, [-1]), -1), [-1]) \
+        + _excl_cumsum(v, -1) + kk[..., None]
+    ddt = (xt * dxr).sum(-1) + Af[:, None] * dla  # (B,nc,H,L)
+    dA = (dts * dla).sum((0, 1, 3))
+
+    def rows(t):  # (B,nc,H,L,*) -> (B,S,H,*)
+        return t.transpose(2, 3).reshape(Bb, Sp, H, *t.shape[4:])[:, :S]
+    return (rows(dx).to(x.dtype), rows(ddt[..., None])[..., 0], dA,
+            rows(dB).sum(2).to(B_.dtype), rows(dC).sum(2).to(C.dtype))
+
+
 def ssd_decode_ref(h, x, dt, A, B_, C):
     """One decode step. h: (B,H,P,N); x: (B,H,P); dt: (B,H); B_,C: (B,N)."""
     decay = torch.exp(A.float()[None, :, None, None] * dt[:, :, None, None])
@@ -556,6 +640,104 @@ def wkv6_scan_bwd_ref(r, k, v, w, u, dy, *, chunk=64):
     dr, dk, dv, dw, du = zip(*outs)
     return tuple(torch.cat(t, 1)[:, :S].to(r.dtype) for t in (dr, dk, dv)) \
         + (torch.cat(dw, 1)[:, :S], sum(du))
+
+
+def _rev_excl_cumsum(t, dim):
+    """The sum of the entries after each one along ``dim``."""
+    return torch.flip(_excl_cumsum(torch.flip(t, [dim]), dim), [dim])
+
+
+def wkv6_scan_bwd_tc_ref(r, k, v, w, u, dy, *, chunk=64, sub=16):
+    """Plain mirror of the bf16 WKV6 backward kernel: ``wkv6_scan_bwd_ref``'s
+    gradients in the kernel's order and at its rounding points.  (a) Each
+    64-step chunk's summaries G = (k exp(cl_L - cl))ᵀ v and
+    Q = (r exp(ecl))ᵀ dy, the scaled operand split (``_split_einsum``);
+    (b) the scan over chunks; (c) each 16-step sub-tile on its own: the
+    state entering it S^j (h_in decayed plus the chunk's earlier rows) and
+    the gradient leaving it G^j (g_out decayed plus the chunk's later rows),
+    each a split product whose decays are sums anchored at the sub-tile's
+    edge; then dY S^jᵀ, V G^jᵀ (S^j, G^j split) and the sub-tile's
+    pairwise (t, s, d) terms with exponents ecl_t - cl_s <= 0; dv =
+    attᵀ dY + (k exp(cL - cl)) G^j (both split) + the bonus; dw read off
+    the states, sum_e G_{t+1} S_t, expanded into <G^j, S^j>, the G^j Vᵀ and
+    S^j dYᵀ sides and the triple terms, each a product of factors <= 1,
+    0 where clip(w, 1e-12, 1) cuts.  Any S (padded with r = k = v = 0,
+    w = 1).  For float32 nothing is rounded.  No training path calls it."""
+    op = r.dtype
+    Bb, S, H, D = r.shape
+    L = chunk
+    nc = -(-S // L)
+    Sp = nc * L
+    rf, kf, vf, yf = (_pad_time(t, Sp).reshape(Bb, nc, L, H, D)
+                      for t in (r, k, v, dy))
+    wf = _pad_time(w, Sp, 1.0).reshape(Bb, nc, L, H, D)
+    inside = (wf >= 1e-12) & (wf <= 1.0)
+    lw = _log_decay(wf)
+    uf = u.float()
+    # (a) + (b)
+    G = _split_einsum("bcshd,bcshe->bchde",
+                      kf * torch.exp(_rev_excl_cumsum(lw, 2)), vf, op)
+    Q = _split_einsum("bcthd,bcthe->bchde",
+                      rf * torch.exp(_excl_cumsum(lw, 2)), yf, op)
+    dec = torch.exp(lw.sum(2))[..., None]  # (B,nc,H,D,1)
+    h_in = _states_entering(G, dec)
+    g_out = _exit_grads(Q, dec)
+    before = torch.tril(torch.ones((sub, sub), dtype=torch.bool,
+                                   device=r.device), diagonal=-1)
+    outs = []
+    for a in range(0, L, sub):
+        b = a + sub
+        lb, la = lw[:, :, :a], lw[:, :, b:]
+        st = torch.exp(lb.sum(2))[..., None] * h_in
+        if a:
+            st = st + _split_einsum(
+                "bcshd,bcshe->bchde",
+                kf[:, :, :a] * torch.exp(_rev_excl_cumsum(lb, 2)),
+                vf[:, :, :a], op)
+        gt = torch.exp(la.sum(2))[..., None] * g_out
+        if b < L:
+            gt = gt + _split_einsum(
+                "bcthd,bcthe->bchde",
+                rf[:, :, b:] * torch.exp(_excl_cumsum(la, 2)), yf[:, :, b:],
+                op)
+        rs, ks, vs, ys, ls = (t[:, :, a:b] for t in (rf, kf, vf, yf, lw))
+        ecl = _excl_cumsum(ls, 2)
+        cl = ecl + ls
+        c_l = cl[:, :, -1:]
+        # E1[t, s] = exp(ecl_t - cl_s) for s < t: (B,nc,t,s,H,D)
+        E1 = torch.exp(torch.where(before[:, :, None, None],
+                                   ecl[:, :, :, None] - cl[:, :, None],
+                                   -torch.inf))
+        sy = _split_einsum("bcthe,bchde->bcthd", ys, st, op)
+        gv = _split_einsum("bcthe,bchde->bcthd", vs, gt, op)
+        vy = torch.einsum("bcthe,bcshe->bchts", ys, vs)  # dy_t . v_s
+        vyd = torch.diagonal(vy, dim1=-2, dim2=-1).permute(0, 1, 3, 2)
+        vyd = vyd[..., None]  # dy_t . v_t, (B,nc,L,H,1)
+        # att[t, s] (s < t) with the bonus r_t.u.k_t on its diagonal
+        att = torch.einsum("bcthd,bctshd,bcshd->bchts", rs, E1, ks) \
+            + torch.diag_embed((rs * uf * ks).sum(-1).transpose(2, 3))
+        tail = torch.exp(c_l - cl)
+        head = torch.exp(ecl)
+        dv = _split_einsum("bchts,bcthe->bcshe", att, ys, op) \
+            + _split_einsum("bcthd,bchde->bcthe", ks * tail, gt, op)
+        dr = head * sy + torch.einsum("bctshd,bcshd,bchts->bcthd", E1, ks, vy) \
+            + uf * ks * vyd
+        dk = torch.einsum("bctshd,bcthd,bchts->bcshd", E1, rs, vy) \
+            + tail * gv + rs * uf * vyd
+        gs = (gt * st).sum(-1)[:, :, None]  # <G^j, S^j> by row d
+        a2 = torch.einsum("bctshd,bcshd,bcshd->bcthd", E1, ks, gv)
+        a3 = torch.einsum("bctshd,bcthd,bcthd->bcshd", E1, rs, sy)
+        a4 = torch.einsum("bcxthd,bctshd,bcxhd,bcshd,bchxs->bcthd", E1, E1, rs,
+                          ks, vy)
+        dw = torch.where(inside[:, :, a:b],
+                         tail * head * gs + tail * a2 + head * a3 + a4, 0.0)
+        outs.append((dr, dk, dv, dw, (rs * ks * vyd).sum((0, 1, 2))))
+    dr, dk, dv, dw, du = zip(*outs)
+
+    def rows(ts):
+        return torch.cat(ts, 2).reshape(Bb, Sp, H, D)[:, :S]
+    return tuple(rows(t).to(r.dtype) for t in (dr, dk, dv)) \
+        + (rows(dw), sum(du))
 
 
 def _split_einsum(eq, a, b, dtype):

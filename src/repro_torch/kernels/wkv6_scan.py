@@ -13,12 +13,16 @@ chunks of its own; ``ref.wkv6_subtile_ref`` mirrors its rounding).
 Gradients.  The Pallas kernel has no VJP; the reference differentiates its
 plain path.  Here, when grad is enabled and an input requires it, a CUDA
 call goes through :class:`WKV6ScanFn`: its forward launches the forward
-kernel and saves the inputs only (the backward recomputes the states from
-checkpoints of its own, see :func:`bwd_scratch`), its backward launches the backward kernel
+kernel and saves the inputs only (the backward recomputes the states, see
+:func:`bwd_scratch`), its backward launches the backward kernel
 (``ref.wkv6_scan_bwd_ref`` is its plain version): dr, dk, dv in r's dtype,
 dw and du in float32, dw zero where ``clip(w, 1e-12, 1)`` cuts (torch.clamp's
-gradient).  ``launches`` counts forward launches, ``bwd_launches`` backward
-calls (each one call of the C entry: the scan, then the sum of du over b).
+gradient).  bf16 runs the chunk-parallel tensor-core design
+(``ref.wkv6_scan_bwd_tc_ref`` mirrors its rounding), float32 PR 23's scalar
+walk.  ``launches`` counts forward launches, ``bwd_launches`` backward calls
+(each one call of a C entry: bf16, the chunk summaries and their scan where
+S > 64, the sub-tiles' gradients, and the sum of du over b and sub-tiles
+where more than one holds it; float32, the scan and the sum of du over b).
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ bwd_launches = 0
 
 _launch = None
 _launch_bwd = None
+_launch_bwd_tc = None
 
 
 def _kernel():
@@ -49,13 +54,20 @@ def _kernel():
     return _launch
 
 
-def _bwd_kernel():
-    global _launch_bwd
-    if _launch_bwd is None:
-        _launch_bwd = _build.bind("wkv6_scan_bwd", "wkv6_scan_bwd",
-                                  [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5
-                                  + [ctypes.c_void_p])
-    return _launch_bwd
+def _bwd_kernel(dtype):
+    global _launch_bwd, _launch_bwd_tc
+    if dtype == torch.float32:
+        if _launch_bwd is None:
+            _launch_bwd = _build.bind(
+                "wkv6_scan_bwd", "wkv6_scan_bwd",
+                [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5
+                + [ctypes.c_void_p])
+        return _launch_bwd
+    if _launch_bwd_tc is None:
+        _launch_bwd_tc = _build.bind(
+            "wkv6_scan_bwd", "wkv6_scan_bwd_tc",
+            [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    return _launch_bwd_tc
 
 
 def check_args(r, k, v, w, u):
@@ -88,6 +100,12 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _aligned16(t):
+    """``t``, or a copy of it where it does not start on 16 bytes (a
+    contiguous view at an odd offset)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _forward(r, k, v, w, u):
     global launches
     B, S, H, D = r.shape
@@ -101,25 +119,35 @@ def _forward(r, k, v, w, u):
     return out
 
 
-CHUNK = 64  # time steps between the backward kernel's saved states
+CHUNK = 64  # time steps of a chunk of the backward kernels
+SUB = 16  # time steps of the bf16 backward kernel's sub-tiles
 
 
 def segment_steps(D):
-    """Time steps of the backward kernel's recomputed segment (64 KB of
-    D x D fp32 states in shared memory)."""
+    """Time steps of the float32 backward kernel's recomputed segment (64
+    KB of D x D fp32 states in shared memory)."""
     return 16384 // (D * D)
 
 
 def bwd_scratch(r):
-    """The backward kernel's scratch for r (B,S,H,D), fp32 on r's device:
-    du's partial sums a (b, h); the state entering every CHUNK steps; and
-    a block's states entering each segment of one chunk.  O(S D^2 / CHUNK)
-    a (b, h): 2x r's bf16 bytes at D 64."""
+    """The backward kernel's scratch for r (B,S,H,D), fp32 on r's device.
+    bf16: du's partial sums a (b, sub-tile) where more than one holds them;
+    and, where S > CHUNK, each chunk's state in and gradient out (D x D
+    each, 2x r's bf16 bytes each at D 64) and decay a row.  float32 (PR 23's
+    kernel): du's partial sums a (b, h); the state entering every CHUNK
+    steps; and a block's states entering each segment of one chunk."""
     B, S, H, D = r.shape
+    nc = -(-S // CHUNK)
     f32 = dict(dtype=torch.float32, device=r.device)
-    return (torch.empty((B, H, D), **f32),
-            torch.empty((B, H, -(-S // CHUNK), D, D), **f32),
-            torch.empty((B, H, CHUNK // segment_steps(D), D, D), **f32))
+    if r.dtype == torch.float32:
+        return (torch.empty((B, H, D), **f32),
+                torch.empty((B, H, nc, D, D), **f32),
+                torch.empty((B, H, CHUNK // segment_steps(D), D, D), **f32))
+    nsub = -(-S // SUB)
+    states = (B, H, nc, D, D) if nc > 1 else (0,)
+    return (torch.empty((B, nsub, H, D) if B * nsub > 1 else (0,), **f32),
+            torch.empty(states, **f32), torch.empty(states, **f32),
+            torch.empty((B, H, nc, D) if nc > 1 else (0,), **f32))
 
 
 def _backward(r, k, v, w, u, dy):
@@ -129,17 +157,20 @@ def _backward(r, k, v, w, u, dy):
     if tuple(dy.shape) != tuple(r.shape) or dy.dtype != r.dtype:
         raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} does not match "
                          f"r {tuple(r.shape)} {r.dtype}")
-    launch = _bwd_kernel()
+    launch = _bwd_kernel(r.dtype)
+    if r.dtype == torch.bfloat16:  # the kernel copies 16-byte chunks
+        r, k, v, w, dy = map(_aligned16, (r, k, v, w, dy))
     dr, dk, dv = (torch.empty_like(r) for _ in range(3))
     dw = torch.empty_like(w)
     du = torch.empty_like(u)
-    du_part, ckpt, seg = bwd_scratch(r)
+    scratch = bwd_scratch(r)
+    extra = [DTYPES[r.dtype]] if r.dtype == torch.float32 else []
     with torch.cuda.device(r.device):
         launch(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                u.data_ptr(), dy.data_ptr(), dr.data_ptr(), dk.data_ptr(),
                dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
-               du_part.data_ptr(), ckpt.data_ptr(), seg.data_ptr(), B, S, H,
-               D, DTYPES[r.dtype], _stream(r))
+               *(t.data_ptr() for t in scratch), B, S, H, D, *extra,
+               _stream(r))
     bwd_launches += 1
     return dr, dk, dv, dw, du
 

@@ -528,6 +528,10 @@ def test_kernel_wrappers_route_grad_through_backward_kernels(cuda_device):
 @pytest.mark.parametrize("B,S,H,D,dtype,strong", [
     (8, 128, 40, 64, "bfloat16", False),  # rwkv6-3b's training shape
     (2, 77, 40, 64, "bfloat16", True),    # ragged, decays at the clip
+    # the bf16 kernel's one-launch path, a ragged sub-tile, every head size
+    (1, 8, 40, 64, "bfloat16", False),
+    (2, 17, 4, 32, "bfloat16", True),
+    (1, 150, 2, 16, "bfloat16", False),
     (2, 64, 4, 64, "float32", False),
     (1, 37, 3, 32, "float32", True),
     (1, 20, 2, 16, "float32", False),
@@ -561,6 +565,11 @@ def test_wkv6_backward_kernel_vs_plain(cuda_device, B, S, H, D, dtype,
 @pytest.mark.parametrize("B,S,H,P,N,dtype", [
     (8, 128, 64, 64, 64, "bfloat16"),  # zamba2-1.2b's training shape
     (2, 77, 64, 64, 64, "bfloat16"),
+    # the bf16 kernel's one-launch path and its other P and N
+    (1, 8, 64, 64, 64, "bfloat16"),
+    (2, 8, 4, 16, 16, "bfloat16"),
+    (1, 137, 3, 32, 128, "bfloat16"),
+    (1, 200, 2, 16, 32, "bfloat16"),
     (2, 64, 4, 64, 64, "float32"),
     (1, 37, 3, 32, 128, "float32"),
     (1, 20, 2, 16, 16, "float32"),
@@ -587,6 +596,42 @@ def test_ssd_backward_kernel_vs_plain(cuda_device, B, S, H, P, N, dtype):
     ssdk.ssd_scan(*xs).backward(dy)
     for t, g in zip(xs, got):
         assert torch.equal(t.grad, g)
+
+
+@pytest.mark.parametrize("scan", ["wkv6", "ssd"])
+def test_scan_backward_bf16_kernels_match_their_mirrors_and_repeat(
+        cuda_device, scan):
+    """The bf16 backward kernels against the mirrors of their rounding
+    points (ref.*_scan_bwd_tc_ref) over several 64-step chunks, bitwise
+    equal over two calls (no atomics), and unchanged by inputs that are
+    contiguous views at an odd offset (the wrapper copies them)."""
+    if scan == "wkv6":
+        args = _wkv_inputs(cuda_device, "bfloat16", 2, 200, 4, 64,
+                           strong=True)
+        dy = _wkv_inputs(cuda_device, "bfloat16", 2, 200, 4, 64, seed=7)[0]
+        bwd, mirror = wkvk.wkv6_scan_bwd, ref.wkv6_scan_bwd_tc_ref
+    else:
+        args = _ssd_inputs(cuda_device, "bfloat16", 2, 200, 8, 64, 64)
+        dy = _ssd_inputs(cuda_device, "bfloat16", 2, 200, 8, 64, 64,
+                         seed=7)[0]
+        bwd, mirror = ssdk.ssd_scan_bwd, ref.ssd_scan_bwd_tc_ref
+    got = bwd(*args, dy)
+    again = bwd(*args, dy)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    for a, b in zip(got, mirror(*args, dy)):
+        assert a.dtype == b.dtype
+        assert _rel(a, b) < SCAN_REL["bfloat16"]
+
+    def shifted(t):
+        view = torch.empty(t.numel() + 8, dtype=t.dtype,
+                           device=t.device)[1:1 + t.numel()].view(t.shape)
+        view.copy_(t)
+        return view
+    for a, b in zip(bwd(*(shifted(t) if t.dim() > 2 else t for t in args),
+                        shifted(dy)), got):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("B,S,T,H,KV,dtype,causal", [

@@ -313,29 +313,59 @@ def _nbytes(ts):
 
 @pytest.mark.parametrize("scan", ["wkv6", "ssd"])
 def test_backward_scratch_is_saved_states_a_chunk(scan):
-    """The backward kernels keep the state entering every 64 steps (2x the
-    bf16 input's bytes at D = P = N = 64: 4 D^2 bytes for 64 tokens of 2 D)
-    and one chunk's segment entry states a block, whatever S; SSD adds its
-    per-head dB / dC partial sums (2x x's bytes each).  A checkpoint a
-    64 KB segment (4 steps at D 64) would be 32x the input."""
+    """The bf16 backward kernels keep, for every 64-step chunk, the state
+    entering it and the gradient leaving it (each 2x the bf16 input's bytes
+    at D = P = N = 64: 4 D^2 bytes for 64 tokens of 2 D) and its decay, and
+    no segment scratch; where S fits one chunk, none of these.  SSD adds
+    dB / dC partial rows a group of heads (16 heads a block at 1 x 4096: a
+    sixteenth of the per-head rows of PR 23's kernel), WKV6 du partial sums
+    a 16-step sub-tile."""
     (x, *rest), _ = _meta_scan_args(scan)
     args = [x] + rest
     B, S, H, D = x.shape
     scratch = _scratch(scan, args)
     mod = wkvk if scan == "wkv6" else ssdk
-    ckpt, seg = scratch[-2:]
+    hst, gst, dec = scratch[-3:]
     assert mod.CHUNK == 64
-    assert ckpt.shape == (B, H, S // 64, D, D)
-    assert _nbytes([ckpt]) == 2 * _nbytes([x])
-    assert seg.shape == (B, H, 64 * D * D // 16384, D, D)
+    assert hst.shape == gst.shape == (B, H, S // 64, D, D)
+    assert _nbytes([hst]) == _nbytes([gst]) == 2 * _nbytes([x])
+    assert dec.shape == ((B, H, S // 64, D) if scan == "wkv6"
+                         else (B, H, S // 64))
     short = _scratch(scan, [x[:, :64]] + [t[:, :64] if t.dim() > 2 and
                                           t.shape[1] == S else t
                                           for t in rest])
-    assert short[-1].shape == seg.shape
+    assert all(t.numel() == 0 for t in short[-3:])
     if scan == "ssd":
-        assert [t.shape for t in scratch[1:3]] == [(B, S, H, D)] * 2
-        assert _nbytes(scratch[1:3]) == 4 * _nbytes([x])
-    assert _nbytes(scratch) < (7 if scan == "ssd" else 3) * _nbytes([x])
+        hg = ssdk.heads_a_block(B, S, H)
+        assert hg == 16
+        assert [t.shape for t in scratch[1:3]] == [(B, S, H // hg, D)] * 2
+        assert _nbytes(scratch[1:3]) * hg == 4 * _nbytes([x])
+        assert scratch[0].shape == (B, S // 64, H)
+    else:
+        assert scratch[0].shape == (B, S // wkvk.SUB, H, D)
+    # h_in and g_out (4x), plus WKV6's du partials (0.13x) or SSD's dB / dC
+    # partial rows a group (0.25x)
+    assert _nbytes(scratch) < (4.2 if scan == "wkv6" else 4.3) * _nbytes([x])
+
+
+# (B, S) -> the head group timed fastest of every divisor of zamba2-1.2b's
+# 64 heads on an H100 (tools/scan_bwd_variants.py --heads; PERF.md §6)
+FASTEST_HEAD_GROUP = {(1, 8): 1, (8, 128): 4, (1, 4096): 16, (4, 1024): 16,
+                      (16, 512): 32, (16, 4096): 64}
+
+
+@pytest.mark.parametrize("B,S", sorted(FASTEST_HEAD_GROUP))
+def test_heads_a_block_picks_the_fastest_timed_group(B, S):
+    """SSD's bf16 backward takes ``heads_a_block`` heads a block; at each
+    shape timed on the card that is the fastest group, and the scratch
+    holds dB / dC partial rows for H / hg groups (none for one group)."""
+    hg = ssdk.heads_a_block(B, S, 64)
+    assert hg == FASTEST_HEAD_GROUP[B, S]
+    x = torch.empty(B, S, 64, 64, dtype=torch.bfloat16, device="meta")
+    rows = ssdk.bwd_scratch(x, torch.empty(B, S, 64, dtype=torch.bfloat16,
+                                           device="meta"))[1:3]
+    want = (B, S, 64 // hg, 64) if hg < 64 else (0,)
+    assert [tuple(t.shape) for t in rows] == [want] * 2
 
 
 @pytest.mark.parametrize("scan", ["wkv6", "ssd"])
