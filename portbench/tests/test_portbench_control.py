@@ -1,0 +1,70 @@
+"""The control of ``correct``: the reference put in the program's place
+and computed in the precision below the configuration's (float8 e4m3
+operands for a bf16 compute dtype) must not pass; nor may the reference
+with the scans' state dropped between chunks.
+
+On the card (``-m cuda``, about 10 minutes a cell): at each cell's own
+size, on three seeds, the control and the planted faults
+(``calibrate.readings``) fail the cell's limits, the dropped carry in the
+training cells (decode's ``logit_gap`` does not see it at random
+weights).  On the CPU, at a small size: the control reads at least three
+times what the program in bf16 reads on one of the numbers, for each
+cell, and the dropped carry as much over the program in float32 in the
+training cells."""
+import pytest
+import torch
+
+from portbench import calibrate
+from portbench.lib import compare, manifest, runner
+from portbench.tests import tiny
+
+CELLS = [w["name"] for w in manifest.load()["workloads"]]
+TRAIN = [c for c in CELLS if manifest.cell(c).traffic["kind"] == "train"]
+SEEDS = (2 ** 31 + 101, 2 ** 31 + 202, 2 ** 31 + 303)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: run with -m cuda on the card")
+    return "cuda:0"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CELLS)
+def test_control_and_faults_fail_at_the_cells_size(card, name):
+    cell = manifest.cell(name)
+    for seed in SEEDS:
+        got = calibrate.readings(cell, seed, 2.0, card)
+        runner.log("readings", {"cell": name, "seed": seed, **got})
+        assert compare.decide(got["program"], cell.limits)[0], got["program"]
+        for what, numbers in got.items():
+            if what.startswith("control") or (
+                    what.startswith("fault") and (
+                        what != "fault_carry" or name in TRAIN)):
+                assert not compare.decide(numbers, cell.limits)[0], (what, numbers)
+
+
+def _least_ratio(cell, what):
+    """The least over two seeds of the most, over the cell's compared
+    numbers, that ``what`` reads over the program."""
+    ratios = []
+    for seed in (1, 2):
+        got = calibrate.readings(cell, seed, 0.2, "cpu")
+        prog = got["program"]
+        ratios.append(max(got[what][k]["value"] / max(prog[k]["value"], 1e-9)
+                          for k in cell.limits))
+    return min(ratios), ratios
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_the_control_reads_well_above_the_program(name):
+    least, ratios = _least_ratio(tiny.cell(name, compute="bfloat16"),
+                                 "control_fp8")
+    assert least >= 3.0, ratios
+
+
+@pytest.mark.parametrize("name", TRAIN)
+def test_the_dropped_carry_reads_well_above_the_program(name):
+    least, ratios = _least_ratio(tiny.cell(name), "fault_carry")
+    assert least >= 3.0, ratios
