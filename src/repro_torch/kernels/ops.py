@@ -50,6 +50,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch import spans
 from repro_torch.kernels import flash_attention as fak
 from repro_torch.kernels.flops import (count, counting_active, flash_flops,
                                       scan_flops, uncounted)
@@ -190,8 +191,15 @@ def flash_attention(q, k, v, *, causal=True, scale=None, softcap_val=None,
 
 def decode_attention(q, ck, cv, *, kv_len, scale=None, softcap_val=None,
                      window=None):
+    """One decode step's attention over the caches, the span
+    ``decode_attention``."""
     kw = dict(kv_len=kv_len, scale=scale, softcap_val=softcap_val,
               window=window)
+    with spans.span("decode_attention"):
+        return _decode_attention(q, ck, cv, kw)
+
+
+def _decode_attention(q, ck, cv, kw):
     if not isinstance(q, DTensor):
         return ref.decode_attention_ref(q, ck, cv, **kw)
     seq = [i for i, p in enumerate(ck.placements) if p == Shard(1)]

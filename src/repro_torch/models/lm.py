@@ -55,6 +55,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch import spans
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
@@ -477,20 +478,36 @@ def forward_train(params, tokens, cfg: ModelConfig, extra=None):
     as the reference's scan body is.  Under a mesh each layer gathers its
     own weights over the fsdp dims inside its remat region
     (``with_gathered_params``); their splits over ``model`` stay."""
+    x, aux = _train_layers(params, tokens, cfg, extra)
+    return _logits(params, x, cfg), aux
+
+
+def _train_layers(params, tokens, cfg: ModelConfig, extra=None):
+    """:func:`forward_train` up to the final norm: (hidden, aux).  Each
+    layer is a span ``layer.<kind>`` inside its remat region, so that the
+    recompute opens it again, and its backward a span
+    ``layer.<kind>.backward`` (``spans.LayerBackward``'s hooks on the
+    tensors between the layers, outside the remat regions)."""
     x = _embed(params, tokens, cfg)
     x0 = x
     enc = _prep_enc(params, cfg, extra or {})
     shared = getattr(params, "shared_attn", None)
     positions = torch.arange(tokens.shape[1], device=x.device)
     aux_tot = dict(ZERO_AUX)
+    bwd = spans.layer_backward()
     for i, (p, spec) in enumerate(zip(params.layers, cfg.plan)):
         def run(p, x, spec=spec):
             y, _, aux = apply_layer(p, spec, cfg, x, positions=positions,
                                     x0=x0, enc=enc, shared_params=shared)
             return y, aux
 
-        def layer(x, p=p, run=run):
-            return with_gathered_params(p, run, x)
+        name = f"layer.{spec.kind}"
+
+        def layer(x, p=p, run=run, name=name):
+            with spans.span(name):
+                return with_gathered_params(p, run, x)
+        if bwd is not None:
+            bwd.boundary(x, name)
         n_pro = len(cfg.prologue)
         if i < n_pro:
             x, aux = layer(x)
@@ -499,7 +516,9 @@ def forward_train(params, tokens, cfg: ModelConfig, extra=None):
             if (i - n_pro + 1) % len(cfg.superblock) == 0:
                 x = constrain(x, "batch", None, None)
         aux_tot = {k: aux_tot[k] + aux[k] for k in aux_tot}
-    return _logits(params, x, cfg), aux_tot
+    if bwd is not None:
+        bwd.boundary(x)
+    return x, aux_tot
 
 
 def gathered_top(params) -> Dict[str, torch.Tensor]:
@@ -523,16 +542,19 @@ def loss_fn(params, batch, cfg: ModelConfig):
     holds integer tensors ``tokens`` and ``labels`` (B,S) on the model's
     device, and the model's extras (``enc_embed`` / ``img_embed``) where
     it reads them.  Returns (loss, metrics)."""
-    logits, aux = forward_train(params, batch["tokens"], cfg,
-                                extra={k: v for k, v in batch.items()
-                                       if k not in ("tokens", "labels")})
-    labels = batch["labels"].long()
-    # a vocab-split DTensor is gathered to whole rows first (DTensor's own
-    # vocab-parallel gather leaves a masked partial its reductions mishandle)
-    ll = on_local_shards(_token_log_likelihood, logits, labels)
-    mask = (labels >= 0).float()
-    loss = -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
-    loss = loss + 1e-2 * aux["moe_lb_loss"] + 1e-3 * aux["moe_z_loss"]
+    x, aux = _train_layers(params, batch["tokens"], cfg,
+                           extra={k: v for k, v in batch.items()
+                                  if k not in ("tokens", "labels")})
+    with spans.span("head_loss"):
+        logits = _logits(params, x, cfg)
+        labels = batch["labels"].long()
+        # a vocab-split DTensor is gathered to whole rows first (DTensor's
+        # own vocab-parallel gather leaves a masked partial its reductions
+        # mishandle)
+        ll = on_local_shards(_token_log_likelihood, logits, labels)
+        mask = (labels >= 0).float()
+        loss = -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+        loss = loss + 1e-2 * aux["moe_lb_loss"] + 1e-3 * aux["moe_z_loss"]
     metrics = {"loss": loss, "ntokens": mask.sum(), **aux}
     return loss, metrics
 
@@ -612,7 +634,8 @@ def forward_cached(params, tokens, caches, cfg: ModelConfig, extra=None):
             return apply_layer(p, spec, cfg, x, positions=positions, x0=x0,
                                enc=enc, cache=c, cache_pos=pos0,
                                shared_params=shared)
-        x, nc, _ = with_gathered_params(p, run, x)
+        with spans.span(f"layer.{spec.kind}"):
+            x, nc, _ = with_gathered_params(p, run, x)
         # a replaced entry (RWKV, Mamba2) keeps its cache's placements
         new_layers.append({k: shd.placed_like(v, c[k]) for k, v in nc.items()}
                           if nc is not None else nc)

@@ -24,6 +24,7 @@ import time
 import torch
 from torch.distributed.tensor import DTensor, distribute_tensor
 
+from repro_torch import spans
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
 from repro_torch.parallel import sharding as shd
@@ -78,9 +79,11 @@ def make_prefill_fn(cfg: ModelConfig, max_len: int, mesh=None, rules=None,
 
 
 def make_decode_fn(cfg: ModelConfig, mesh=None, rules=None):
-    """``decode_fn(params, token, caches) -> (logits, caches)``."""
+    """``decode_fn(params, token, caches) -> (logits, caches)``; a step
+    is the span ``decode_step`` (``spans.step``)."""
     def decode_fn(params, token, caches):
-        with shd.activation_rules(mesh, rules):
+        with spans.step("decode_step", "decode"), \
+                shd.activation_rules(mesh, rules):
             token = _split_batch(token, mesh)
             return _call(params, mesh, lambda p, t: lm.decode_step(
                 p, t, caches, cfg), token)

@@ -43,6 +43,7 @@ import torch
 from torch import nn
 from torch.distributed.tensor import DTensor, distribute_tensor
 
+from repro_torch import spans
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import lm
@@ -156,12 +157,15 @@ class _Loss(nn.Module):
         self.model, self.cfg, self.leaves = model, cfg, leaves
 
     def forward(self, batch):
-        loss, metrics = lm.loss_fn(self.model, batch, self.cfg)
+        with spans.span("forward", "forward"):
+            loss, metrics = lm.loss_fn(self.model, batch, self.cfg)
+        if self.leaves is None:
+            return loss, metrics, None
         # a parameter the loss never reads (zamba2's shared block's norm1)
         # gets a zero gradient, as jax.grad gives it
-        grads = (None if self.leaves is None
-                 else torch.autograd.grad(loss, self.leaves, allow_unused=True,
-                                          materialize_grads=True))
+        with spans.span("backward", "backward"):
+            grads = torch.autograd.grad(loss, self.leaves, allow_unused=True,
+                                        materialize_grads=True)
         return loss, metrics, grads
 
 
@@ -188,7 +192,8 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[Optimizer] = None,
     acc_dt = L.dtype_of(cfg.accum_dtype)
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
-        with shd.activation_rules(mesh, rules):
+        with spans.step("train_step", "step"), \
+                shd.activation_rules(mesh, rules):
             params = named_params(state.params)
             # the parameters' (local) device: a card, the CPU, or meta in
             # the dry run
@@ -200,22 +205,26 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[Optimizer] = None,
 
             mbs = {k: split(v) for k, v in batch.items()}
             names = list(params)
-            gsum = {k: torch.zeros_like(p, dtype=acc_dt)
-                    for k, p in params.items()}
+            with spans.span("grad_accum", "grad_accum"):
+                gsum = {k: torch.zeros_like(p, dtype=acc_dt)
+                        for k, p in params.items()}
             lsum = 0.0
             for i in range(n_mb):
-                mb = {k: v[i] for k, v in mbs.items()}
-                if mesh is not None:
-                    mb = {k: shard_input(v, mesh) for k, v in mb.items()}
-                loss, _, grads = _run_loss(state.params, mb, cfg, mesh,
-                                           [params[k] for k in names])
-                for k, g in zip(names, grads):
-                    gsum[k] += g.to(acc_dt)
-                lsum = lsum + loss.detach()
-            grads = {k: g / n_mb for k, g in gsum.items()}
-            _, new_opt = optimizer.update(grads, state.opt, params)
-            gnorm = torch.sqrt(sum(torch.sum(torch.square(g))
-                                   for g in grads.values()))
+                with spans.span("microbatch"):
+                    mb = {k: v[i] for k, v in mbs.items()}
+                    if mesh is not None:
+                        mb = {k: shard_input(v, mesh) for k, v in mb.items()}
+                    loss, _, grads = _run_loss(state.params, mb, cfg, mesh,
+                                               [params[k] for k in names])
+                    with spans.span("grad_accum", "grad_accum"):
+                        for k, g in zip(names, grads):
+                            gsum[k] += g.to(acc_dt)
+                        lsum = lsum + loss.detach()
+            with spans.span("optimizer", "optimizer"):
+                grads = {k: g / n_mb for k, g in gsum.items()}
+                _, new_opt = optimizer.update(grads, state.opt, params)
+                gnorm = torch.sqrt(sum(torch.sum(torch.square(g))
+                                       for g in grads.values()))
             metrics = {"loss": _plain(lsum / n_mb), "grad_norm": _plain(gnorm),
                        "step": state.step + 1}
             return TrainState(state.params, new_opt, state.step + 1), metrics
