@@ -7,7 +7,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
   1. environment: versions, the card's name and power limit;
   2. build: every CUDA source under src/repro_torch/kernels/csrc with nvcc
      for sm_90a, into build/ (flash_attention, flash_attention_bwd,
-     wkv6_scan, ssd_scan, wkv6_scan_bwd, ssd_scan_bwd), where the D-192
+     wkv6_scan, ssd_scan, wkv6_scan_bwd, ssd_scan_bwd, decode_attention),
+     where the D-192
      flash forward instances must report 0 spill bytes (the D-192 backward
      and the scans' backward kernels are reported); then the tensor-core
      instructions of each kernel function (cuobjdump -sass), which every
@@ -43,7 +44,14 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      points (ref.*_scan_bwd_tc_ref); two calls must give bitwise-equal
      gradients and the autograd Functions the direct calls'; timed against
      their bound (bytes, or the products at the bf16 peak; no one PyTorch
-     call computes them);
+     call computes them).  The decode attention kernel is held to
+     ref.decode_attention_ref at DECODE_SHAPES (the benchmark's decode cell,
+     128 rows over a 4096-position cache at D 128; the served archs' decode
+     shapes; one row through the split path; float32, float32 compute over
+     a bf16 cache, D 32, a window, 20 query heads a KV head, kv_len 1) at
+     DECODE_REL, and timed at DECODE_MAIN beside its plain version, the
+     bound (the attended cache read once) and scaled_dot_product_attention
+     over the attended positions as the yardstick (none with a softcap);
   4. serve: jag-surrogate, rwkv6-3b, zamba2-1.2b, phi4-mini-3.8b,
      whisper-tiny and llama-3.2-vision-11b at full width and full depth,
      deepseek-v2-lite-16b at full width and 14 of its 27 layers (the dense
@@ -62,7 +70,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      flash, and 42 more for deepseek's run with int8 latent caches;
      whisper 3 x (12 + 31 x 4) = 408 and llama-vision 3 x (40 + 31 x 8) =
      864, its cross-attention running at every decode step; starcoder2
-     60), and the first-token and first decode-step logits are held
+     60; and the decode attention kernel once a self-attention layer and
+     decode step: 3 x 31 x 4 for jag and whisper, x 5 for zamba2, x 32
+     for phi4 and llama-vision, x 8 for gemma2, x 20 for starcoder2, none
+     for rwkv6 and deepseek), and the first-token and first decode-step
+     logits are held
      against a run of the plain versions from the plain run's own caches
      (MoE layers at the kernel run's routes).  A float32-compute
      prefill must launch one prefill's count.  One prefill and 8 decode
@@ -176,7 +188,8 @@ before each phase and must read 0 after it.
      under the mesh serve jag-surrogate and whisper-tiny at full width
      (batch 4, 32-token prompts, 8 tokens; whisper's cross-attention at
      S = 1 through the flash kernel), their logits bit-equal to
-     ServeEngine(mesh=...).generate's and their flash launches exact; and
+     ServeEngine(mesh=...).generate's and their flash and decode
+     attention launches exact; and
      a `mesh` line: deepseek-v2-lite-16b at full width, its dense prologue
      layer and one MoE layer, evaluates under the mesh (the D-192 flash
      forward on the local shards, 2 launches) to the unsharded loss and
@@ -210,6 +223,7 @@ import torch  # noqa: E402
 from repro_torch import env  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels import decode_attention as dak  # noqa: E402
 from repro_torch.kernels import flash_attention as fak  # noqa: E402
 from repro_torch.kernels import flops as kflops  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssdk  # noqa: E402
@@ -309,13 +323,15 @@ KERNELS = {"flash_attention": (fak, "launches"),
            "flash_attention_bwd": (fak, "bwd_launches"),
            "wkv6_scan": (wkvk, "launches"), "ssd_scan": (ssdk, "launches"),
            "wkv6_scan_bwd": (wkvk, "bwd_launches"),
-           "ssd_scan_bwd": (ssdk, "bwd_launches")}
+           "ssd_scan_bwd": (ssdk, "bwd_launches"),
+           "decode_attention": (dak, "launches")}
 # the serve lines' names of the counts
 COUNT_KEYS = {"flash_attention": "flash_launches",
               "flash_attention_bwd": "flash_bwd_launches",
               "wkv6_scan": "wkv6_launches", "ssd_scan": "ssd_launches",
               "wkv6_scan_bwd": "wkv6_bwd_launches",
-              "ssd_scan_bwd": "ssd_bwd_launches"}
+              "ssd_scan_bwd": "ssd_bwd_launches",
+              "decode_attention": "decode_attention_launches"}
 
 # Scans: max |kernel - plain| / max |plain| below SCAN_REL.  float32 is
 # tests/test_kernels.py's bar; a bf16 output is rounded to 8 mantissa bits
@@ -409,6 +425,47 @@ SSD_BWD_SHAPES = [
 ]
 SSD_BWD_TIMED = ("zamba2_train_bundles", "zamba2_train_128",
                  "zamba2_train_4096")
+# Decode attention (csrc/decode_attention.cu) against ref.decode_attention_ref:
+# (name, B, H, KV, D, T, kv_len, window, softcap, q dtype, cache dtype).
+# The benchmark's decode cell (zamba2-1.2b at head size 128, 128 rows over
+# a full 4096-position cache), then the served archs' self-attention decode
+# at the serve phase's shapes (batch 4, a 552-position cache; gemma2 batch
+# 1 past its 4096 window, softcap 50), then the edges: the split path at
+# one row, float32, float32 compute over a bf16 cache, a group wider than
+# 16 query heads, ragged tiles, kv_len 1, a window.  Held at
+# max |kernel - plain| / max |plain| below DECODE_REL: float32 sums in
+# another order, and a bf16 output rounded once from them.
+DECODE_SHAPES = [
+    ("zamba2_decode_b128", 128, 32, 32, 128, 4096, 4096, None, None, BF16,
+     BF16),
+    ("zamba2_decode_b1", 1, 32, 32, 128, 4096, 4096, None, None, BF16, BF16),
+    ("jag_decode", 4, 4, 4, 64, 552, 540, None, None, BF16, BF16),
+    ("zamba2_registry_decode", 4, 32, 32, 64, 552, 540, None, None, BF16,
+     BF16),
+    ("phi4_decode", 4, 24, 8, 128, 552, 540, None, None, BF16, BF16),
+    ("gemma2_local_decode", 1, 32, 16, 128, 4096, 4096, None, 50.0, BF16,
+     BF16),
+    ("gemma2_global_decode", 1, 32, 16, 128, 6184, 6150, None, 50.0, BF16,
+     BF16),
+    ("starcoder2_decode", 4, 48, 4, 128, 552, 540, None, None, BF16, BF16),
+    ("llama_vision_self_decode", 4, 32, 8, 128, 552, 540, None, None, BF16,
+     BF16),
+    ("arctic_decode", 4, 56, 8, 128, 552, 540, None, None, BF16, BF16),
+    ("whisper_self_decode", 4, 6, 6, 64, 440, 420, None, None, BF16, BF16),
+    ("f32_D32_window_softcap", 2, 8, 2, 32, 300, 250, 64, 30.0, F32, F32),
+    ("f32_q_bf16_cache", 4, 8, 8, 64, 200, 150, None, None, F32, BF16),
+    ("f32_D128_split", 1, 16, 4, 128, 3000, 2999, None, None, F32, F32),
+    ("bf16_D32_ragged", 3, 4, 4, 32, 77, 77, None, None, BF16, BF16),
+    ("bf16_g20_two_groups", 2, 40, 2, 64, 300, 290, None, None, BF16, BF16),
+    ("bf16_kv_len_1", 2, 4, 2, 64, 128, 1, None, None, BF16, BF16),
+    ("bf16_window_1", 1, 8, 8, 128, 2048, 2000, 1, None, BF16, BF16),
+]
+DECODE_MAIN = ("zamba2_decode_b128", "zamba2_decode_b1", "jag_decode",
+               "zamba2_registry_decode", "phi4_decode", "gemma2_local_decode",
+               "gemma2_global_decode", "starcoder2_decode",
+               "llama_vision_self_decode", "arctic_decode",
+               "whisper_self_decode")
+DECODE_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # float32-compute serve run against its plain run: rounding only
 FP32_SERVE_REL = 1e-3
 
@@ -417,10 +474,14 @@ def _serve(counts, batch=4, prompts=(32, 200, 512), new_tokens=32,
            n_repeat=None, decode_counts=None):
     """One model's serve run: ``counts(cfg)`` is the launches each prefill
     must make, per kernel, and ``decode_counts(cfg)`` those of each decode
-    step (None: none); ``n_repeat`` cuts the depth (None: full)."""
+    step beyond the decode attention kernel's, which every self-attention
+    layer launches once a step; ``n_repeat`` cuts the depth (None:
+    full)."""
+    more = decode_counts or (lambda cfg: {})
     return {"counts": counts, "batch": batch, "prompts": prompts,
             "new_tokens": new_tokens, "n_repeat": n_repeat,
-            "decode_counts": decode_counts or (lambda cfg: {})}
+            "decode_counts": lambda cfg: {
+                "decode_attention": _self_attn_layers(cfg), **more(cfg)}}
 
 
 SERVE = {
@@ -692,8 +753,94 @@ def phase_flash(dev):
     return errs, timing
 
 
+def decode_inputs(gen, dev, B, H, KV, D, T, qdt, cdt):
+    """q at twice the cache's scale, so the softmax is peaked as well as
+    flat across rows."""
+    q = 2.0 * torch.randn(B, 1, H, D, generator=gen, device=dev)
+    ck, cv = (torch.randn(B, T, KV, D, generator=gen, device=dev).to(cdt)
+              for _ in range(2))
+    return q.to(qdt), ck, cv
+
+
+def decode_work(q, ck, kv_len, window):
+    """Bytes (q read and the output written in q's dtype, K and V over the
+    attended positions in the cache's, each once) and the two products
+    over them."""
+    B, _, H, D = q.shape
+    lo, hi = dak.attended(kv_len, window)
+    nbytes = 2 * q.numel() * q.element_size() \
+        + 2 * B * (hi - lo) * ck.shape[2] * D * ck.element_size()
+    return _bound(nbytes, 4 * B * H * (hi - lo) * D)
+
+
+def phase_decode_attention(dev):
+    """The decode attention kernel against ref.decode_attention_ref at
+    DECODE_SHAPES (the split path's launches counted), timed at
+    DECODE_MAIN beside the plain version, the bound and, where no softcap
+    or window applies, scaled_dot_product_attention over the attended
+    positions as the yardstick (the port never calls it)."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    errs, timing = {}, {}
+    for (name, B, H, KV, D, T, kv_len, window, softcap, qdt,
+         cdt) in DECODE_SHAPES:
+        q, ck, cv = decode_inputs(gen, dev, B, H, KV, D, T, qdt, cdt)
+        kw = dict(kv_len=kv_len, window=window, softcap_val=softcap)
+        lo, hi = dak.attended(kv_len, window)
+        splits0 = dak.split_launches
+        got = dak.decode_attention(q, ck, cv, **kw)
+        torch.cuda.synchronize()
+        split = dak.split_launches - splits0
+        want = ref.decode_attention_ref(q, ck, cv, **kw)
+        err = float((got.float() - want.float()).abs().max())
+        rel = err / float(want.float().abs().max())
+        ok = bool(torch.isfinite(got.float()).all() and rel < DECODE_REL[qdt]
+                  and got.dtype == qdt
+                  and split == (dak.num_splits(B, KV, hi - lo) > 1))
+        errs[name] = err
+        say("kernel_vs_plain", kernel="decode_attention", shape=name, B=B,
+            H=H, KV=KV, D=D, T=T, kv_len=kv_len, window=window,
+            softcap=softcap, q_dtype=str(qdt).split(".")[-1],
+            cache_dtype=str(cdt).split(".")[-1],
+            splits=dak.num_splits(B, KV, hi - lo), max_abs_err=err,
+            rel_err=rel, rel_tol=DECODE_REL[qdt], ok=ok)
+        if not ok:
+            raise RuntimeError(f"decode_attention disagrees with its plain "
+                               f"version at {name}: rel err {rel}, split "
+                               f"launches {split}")
+        if name not in DECODE_MAIN:
+            continue
+        big = B * T * KV * D > 2 ** 28  # the plain version's copies take ms
+        rounds, reps = (3, 5) if big else (7, 20)
+        library = softcap is None and window is None
+        kt, vt = (x[:, :kv_len].transpose(1, 2) for x in (ck, cv))
+        t = timing[name] = {
+            "ms": device_ms(lambda: dak.decode_attention(q, ck, cv, **kw)),
+            "plain_ms": device_ms(
+                lambda: ref.decode_attention_ref(q, ck, cv, **kw),
+                rounds, reps),
+            "library_ms": device_ms(lambda: _sdpa(
+                q.transpose(1, 2), kt, vt, False, 1.0 / D ** 0.5))
+            if library else None,
+            **decode_work(q, ck, kv_len, window)}
+        t["kernel_over_bound"] = t["ms"] / t["bound_ms"]
+        say("kernel_time", kernel="decode_attention", shape=name,
+            measured_on=torch.cuda.get_device_name(0),
+            nvidia_smi=env.nvidia_smi_line(), kernel_ms=t["ms"],
+            **{key: val for key, val in t.items() if key != "ms"})
+        del q, ck, cv, kt, vt, got, want
+        _free()
+    return errs, timing
+
+
 def _count(cfg, kind):
     return sum(spec.kind == kind for spec in cfg.plan)
+
+
+def _self_attn_layers(cfg):
+    """Layers whose decode step attends a self-attention cache (one decode
+    attention launch each)."""
+    return sum(spec.kind in ("attn", "shared_attn", "dec")
+               for spec in cfg.plan)
 
 
 def _bound(nbytes, flops):
@@ -1024,7 +1171,8 @@ _SCAN_BWD = ("wkv6_bwd_kernel", "ssd_bwd_kernel", "sum_rows_kernel",
 
 def _device_groups(fn):
     """Device time (ms) of ``fn()`` under torch.profiler by kernel group
-    (the flash forward, matrix products, copies and casts, the rest) and
+    (the flash forward, decode attention, matrix products, copies and
+    casts, the rest) and
     by kernel name (the five longest); (None, None) where the profiler
     records no device event."""
     from torch.autograd import DeviceType
@@ -1041,6 +1189,7 @@ def _device_groups(fn):
         names[e.name[:100]] = names.get(e.name[:100], 0.0) + ms
         low = e.name.lower()
         name = ("flash_fwd" if "flash_fwd" in low else
+                "decode_attn" if "decode_attn" in low else
                 "gemm" if any(f in low for f in _GEMM) else
                 "copy_cast" if any(f in low for f in _COPY) else "other")
         groups[name] = groups.get(name, 0.0) + ms
@@ -1790,7 +1939,7 @@ def _train_launches(cfg, steps):
     n = cfg.n_layers * max(1, cfg.microbatch) * steps
     return {"flash_attention": 2 * n, "flash_attention_bwd": n,
             "wkv6_scan": 0, "ssd_scan": 0,
-            "wkv6_scan_bwd": 0, "ssd_scan_bwd": 0}
+            "wkv6_scan_bwd": 0, "ssd_scan_bwd": 0, "decode_attention": 0}
 
 
 def _train_run(label, args, tokens, want):
@@ -2026,7 +2175,7 @@ def _encdec_launches(cfg, steps):
     return {"flash_attention": n_mb * (cfg.n_enc_layers + 2 * attn),
             "flash_attention_bwd": n_mb * (cfg.n_enc_layers + attn),
             "wkv6_scan": 0, "ssd_scan": 0,
-            "wkv6_scan_bwd": 0, "ssd_scan_bwd": 0}
+            "wkv6_scan_bwd": 0, "ssd_scan_bwd": 0, "decode_attention": 0}
 
 
 def _loss_fell(label, history, window=10):
@@ -2358,7 +2507,7 @@ def _serve_flash(cfg, new_tokens):
     """Flash launches of one prefill and ``new_tokens - 1`` decode steps:
     each encoder layer, self- and cross-attention at prefill; each
     cross-attention again at every decode step (self-attention decodes
-    through the plain cache attention)."""
+    through the decode attention kernel)."""
     pre = cfg.n_enc_layers + sum({"dec": 2}.get(spec.kind, 1)
                                  for spec in cfg.plan
                                  if spec.kind not in ("rwkv6", "mamba2"))
@@ -2474,9 +2623,10 @@ def _dryrun_memory_flops(dev, mesh):
 def _dryrun_serve_fns(dev, mesh):
     """``make_prefill_fn`` / ``make_decode_fn`` under the mesh serve
     jag-surrogate and whisper-tiny at full width (whisper's
-    cross-attention at S = 1 through the flash kernel): their logits
-    bit-equal to ``ServeEngine(mesh=...).generate``'s, their flash
-    launches exact.  Returns the launch counts."""
+    cross-attention at S = 1 through the flash kernel, self-attention
+    through the decode attention kernel on the local shards): their logits
+    bit-equal to ``ServeEngine(mesh=...).generate``'s, their flash and
+    decode attention launches exact.  Returns the launch counts."""
     from repro_torch.parallel.sharding import shard_module
     from repro_torch.serve.engine import make_decode_fn, make_prefill_fn
     launches = {name: 0 for name in KERNELS}
@@ -2522,7 +2672,8 @@ def _dryrun_serve_fns(dev, mesh):
             torch.equal(a, b) for a, b in zip(fn_logits, seen))
         want = {"flash_attention": _serve_flash(cfg, new),
                 "flash_attention_bwd": 0, "wkv6_scan": 0, "ssd_scan": 0,
-                "wkv6_scan_bwd": 0, "ssd_scan_bwd": 0}
+                "wkv6_scan_bwd": 0, "ssd_scan_bwd": 0,
+                "decode_attention": (new - 1) * _self_attn_layers(cfg)}
         ok = (equal and fn_counts == want and eng_counts == want
               and tuple(out.shape) == (4, new)
               and all(bool(torch.isfinite(x).all()) for x in seen))
@@ -2562,7 +2713,7 @@ def _deepseek_mesh_eval(dev, mesh):
            for k in ("loss", "moe_lb_loss", "moe_z_loss")}
     want = {"flash_attention": cfg.n_layers, "flash_attention_bwd": 0,
             "wkv6_scan": 0, "ssd_scan": 0,
-            "wkv6_scan_bwd": 0, "ssd_scan_bwd": 0}
+            "wkv6_scan_bwd": 0, "ssd_scan_bwd": 0, "decode_attention": 0}
     ok = counts == want and max(rel.values()) <= DEEPSEEK_EVAL_REL
     say("mesh", check="deepseek_eval", arch=cfg.arch_id,
         layers=[s.kind + "/" + s.mlp for s in cfg.plan], mesh_shape=[1, 1],
@@ -2743,6 +2894,8 @@ SOURCES = {
     "ssd_scan": "src/repro/kernels/ssd_scan.py:21",
     "wkv6_scan_bwd": "src/repro/kernels/ref.py:253",
     "ssd_scan_bwd": "src/repro/kernels/ref.py:167",
+    # no TPU kernel: the reference's decode attention is plain
+    "decode_attention": "src/repro/kernels/ref.py:105",
 }
 
 
@@ -2791,6 +2944,9 @@ def main() -> int:
                                             work)
         timing[name] = t[timed[0]]
         main_shapes[name] = timed[:1]
+    errs["decode_attention"], t = phase_decode_attention(dev)
+    timing["decode_attention"] = t[DECODE_MAIN[0]]
+    main_shapes["decode_attention"] = DECODE_MAIN
     _free()
     mark("kernels")
     launches = {name: 0 for name in KERNELS}

@@ -76,3 +76,11 @@ def scan_flops(x, n, backward=False) -> float:
     decay's <Gh, h>)."""
     B, S, H, D = x.shape
     return 2.0 * (6 if backward else 2) * B * S * H * D * n
+
+
+def decode_flops(q, ck) -> float:
+    """Multiply-adds x 2 of the plain decode attention's two products, q.K
+    and p.V over every cache position (masked ones too): what a dispatch
+    counter counts of the plain version, so the kernel counts the same."""
+    B, _, H, D = q.shape
+    return 4.0 * B * H * ck.shape[1] * D

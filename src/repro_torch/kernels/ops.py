@@ -22,10 +22,12 @@ batch rows and heads, through ``parallel.sharding.run_local``
 Where the query heads are split over ``model`` and the KV heads are not
 (they do not divide it), each rank selects the KV heads its query heads
 read by their global index, so that the kernel's local ratio H / KV
-holds.  Decode attention over a cache split along its positions
-(``kv_seq``) is a softmax over a split dim: each rank attends over its
-own positions and the partial rows are merged (max, then sums) over the
-mesh dims that split them.
+holds (decode attention's kernel takes such a selection as a view: its
+cache strides need only the heads and head dim packed).  Decode attention
+over a cache split along its positions (``kv_seq``) is a softmax over a
+split dim: each rank attends over its own positions with the plain
+version and the partial rows are merged (max, then sums) over the mesh
+dims that split them.
 
 FLOP accounting.  While a counter is registered (``counting``; the dry
 run's ``LocalFlopCounter``), each kernel call adds the work its inputs
@@ -35,7 +37,11 @@ runs with the counter's dispatch modes suspended; on a meta or CPU
 tensor under grad flash then goes through :class:`_PlainFlashFn`, which
 saves what the kernel's autograd Function saves (q, k, v, out, lse), and
 the scans through :class:`_PlainScanFn` (their inputs), so that a dry run
-counts and holds what the card's step does.
+counts and holds what the card's step does.  Decode attention's kernel
+adds what the counter's dispatch mode counts of its plain version (its two
+products over every cache position, ``flops.decode_flops``); the plain
+version's float32 copies of the cache, which a dry run holds, the kernel
+does not make.
 
 The scans pad a ragged S to a multiple of ``chunk`` as the reference does
 (zeros; w with 1.0, whose log-decay 0 makes the padding inert) and slice the
@@ -51,9 +57,10 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch import spans
+from repro_torch.kernels import decode_attention as dak
 from repro_torch.kernels import flash_attention as fak
-from repro_torch.kernels.flops import (count, counting_active, flash_flops,
-                                      scan_flops, uncounted)
+from repro_torch.kernels.flops import (count, counting_active, decode_flops,
+                                      flash_flops, scan_flops, uncounted)
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as ssdk
 from repro_torch.kernels import wkv6_scan as wkvk
@@ -190,18 +197,27 @@ def flash_attention(q, k, v, *, causal=True, scale=None, softcap_val=None,
 
 
 def decode_attention(q, ck, cv, *, kv_len, scale=None, softcap_val=None,
-                     window=None):
+                     window=None, use_pallas="auto"):
     """One decode step's attention over the caches, the span
-    ``decode_attention``."""
+    ``decode_attention``: the CUDA decode attention kernel on a CUDA
+    tensor, the plain version elsewhere; a cache split along its positions
+    stays plain (``_decode_split``)."""
     kw = dict(kv_len=kv_len, scale=scale, softcap_val=softcap_val,
               window=window)
     with spans.span("decode_attention"):
-        return _decode_attention(q, ck, cv, kw)
+        return _decode_attention(q, ck, cv, use_pallas, kw)
 
 
-def _decode_attention(q, ck, cv, kw):
+def _decode_local(q, ck, cv, use_pallas, kw):
+    if _use_kernel(use_pallas, q):
+        count("decode_attention", decode_flops, q, ck)
+        return dak.decode_attention(q.contiguous(), ck, cv, **kw)
+    return ref.decode_attention_ref(q, ck, cv, **kw)
+
+
+def _decode_attention(q, ck, cv, use_pallas, kw):
     if not isinstance(q, DTensor):
-        return ref.decode_attention_ref(q, ck, cv, **kw)
+        return _decode_local(q, ck, cv, use_pallas, kw)
     seq = [i for i, p in enumerate(ck.placements) if p == Shard(1)]
     if not seq:  # the cache is split over heads (or not at all)
         q = q.redistribute(q.device_mesh, batch_placements(q, keep=2))
@@ -212,7 +228,7 @@ def _decode_attention(q, ck, cv, kw):
         def local(q, ck, cv):
             if sel is not None:
                 ck, cv = ck[:, :, sel], cv[:, :, sel]
-            return ref.decode_attention_ref(q, ck, cv, **kw)
+            return _decode_local(q, ck, cv, use_pallas, kw)
         return run_local(local, q, ck, cv)
     # the cache is split along its positions: every head here, a partial
     # softmax over this rank's positions, merged over the mesh dims in seq

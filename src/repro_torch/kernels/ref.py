@@ -14,8 +14,11 @@ the backward kernel (dq, dk, dv from q, k, v, o, dO and that log-sum-exp);
 points (P and dS rounded to bf16 as operands).
 
 ``naive_attention`` is the O(S²) oracle, in the reference's own order (dot,
-then scale).  ``decode_attention_ref`` is one token against a cache; the
-reference has no kernel for it, so it stays plain on every device.
+then scale).  ``decode_attention_ref`` is one token against a cache, the
+plain version of the CUDA decode attention kernel (the reference has none:
+its decode attention is this plain function on every device);
+``decode_attention_split_ref`` is the kernel's split path, the attended
+positions in runs whose partial (out, max, sum) are then merged.
 
 The scans follow the reference function for function: ``ssd_scan_ref`` and
 ``wkv6_scan_ref`` are the sequential oracles; ``ssd_chunked_ref`` and
@@ -241,6 +244,36 @@ def decode_attention_ref(q, ck, cv, *, kv_len, scale=None, softcap_val=None,
     logits = torch.where(mask, logits, NEG_INF)
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgt,btkd->bkgd", w, cv.float())
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+def decode_attention_split_ref(q, ck, cv, *, kv_len, scale=None,
+                               softcap_val=None, window=None, splits=1):
+    """``decode_attention_ref`` as the kernel's split path computes it: the
+    attended positions [lo, hi) in ``splits`` runs of ceil((hi - lo) /
+    splits), each run's unnormalised output o = sum_t exp(s_t - m) v_t, max
+    m and sum l = sum_t exp(s_t - m), then the merge o = sum_r o_r
+    exp(m_r - M) / sum_r l_r exp(m_r - M), M the largest m_r."""
+    B, _, H, D = q.shape
+    KV = ck.shape[2]
+    g = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    lo = 0 if window is None else max(0, kv_len - window)
+    chunk = -(-(kv_len - lo) // splits)
+    qf = q.reshape(B, KV, g, D).float()
+    os, ms, ls = [], [], []
+    for a in range(lo, kv_len, chunk):
+        b = min(kv_len, a + chunk)
+        s = torch.einsum("bkgd,btkd->bkgt", qf, ck[:, a:b].float()) * scale
+        s = _apply_softcap(s, softcap_val)
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)
+        os.append(torch.einsum("bkgt,btkd->bkgd", p, cv[:, a:b].float()))
+        ms.append(m)
+        ls.append(p.sum(-1, keepdim=True))
+    M = torch.stack(ms).amax(0)
+    f = [torch.exp(m - M) for m in ms]
+    out = sum(o * w for o, w in zip(os, f)) / sum(l * w for l, w in zip(ls, f))
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 

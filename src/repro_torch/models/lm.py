@@ -329,7 +329,8 @@ def _attn_decode_rolling(pa, h, cfg, spec, positions, cache, write_pos, kv_len):
     L.write_at(cv, write_pos, v)
     out = kops.decode_attention(q, ck, cv, kv_len=kv_len,
                                 scale=L.attention_scale(cfg),
-                                softcap_val=cfg.attn_softcap, window=None)
+                                softcap_val=cfg.attn_softcap, window=None,
+                                use_pallas=cfg.use_pallas)
     o = linear(shd.flatten_heads(out), pa.wo.to(cdt))
     return o.to(h.dtype), {"k": ck, "v": cv}
 

@@ -1,5 +1,6 @@
 """Tests of the port that need the card: each CUDA kernel (flash attention
-forward and backward, the WKV6 and SSD scans) against its plain version, the
+forward and backward, the WKV6 and SSD scans, decode attention) against its
+plain version, the
 serving and training paths launching them, and the ensemble executor's CUDA
 graphs against its CPU path.  They carry
 the ``cuda`` marker and skip without a card; on the card run
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from repro_torch.configs import registry
+from repro_torch.kernels import decode_attention as dak
 from repro_torch.kernels import flash_attention as fak
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as ssdk
@@ -100,6 +102,117 @@ def test_kernel_refuses_what_it_cannot_take(cuda_device):
     q, k, v = _qkv(cuda_device, "float32", 1, 8, 8, 2, 2, 64)
     with pytest.raises(ValueError, match="contiguous"):
         fak.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+
+
+# decode attention: max |kernel - plain| / max |plain|; float32 sums in
+# another order, a bf16 output rounded once from them
+DECODE_REL = {"float32": 1e-4, "bfloat16": 1e-2}
+
+
+@pytest.mark.parametrize("B,H,KV,D,T,kv_len,window,softcap,dtype,cache", [
+    # the benchmark's decode cell: zamba2-1.2b at head size 128, 128 rows
+    # over a full 4096-position cache (4,096 blocks, no split)
+    (128, 32, 32, 128, 4096, 4096, None, None, "bfloat16", "bfloat16"),
+    # the same at one row: the split path
+    (1, 32, 32, 128, 4096, 4096, None, None, "bfloat16", "bfloat16"),
+    # the served archs' self-attention decode (batch 4, a 552-position
+    # cache; gemma2 one row past its 4096 window, softcap 50), each split,
+    # and at 64 rows unsplit
+    (4, 4, 4, 64, 552, 540, None, None, "bfloat16", "bfloat16"),
+    (4, 24, 8, 128, 552, 540, None, None, "bfloat16", "bfloat16"),
+    (64, 24, 8, 128, 552, 540, None, None, "bfloat16", "bfloat16"),
+    (1, 32, 16, 128, 4096, 4096, None, 50.0, "bfloat16", "bfloat16"),
+    (64, 32, 16, 128, 1024, 1000, None, 50.0, "bfloat16", "bfloat16"),
+    (4, 48, 4, 128, 552, 540, None, None, "bfloat16", "bfloat16"),
+    (64, 48, 4, 128, 552, 540, None, None, "bfloat16", "bfloat16"),
+    (4, 32, 8, 128, 552, 540, None, None, "bfloat16", "bfloat16"),
+    (4, 56, 8, 128, 552, 540, None, None, "bfloat16", "bfloat16"),
+    (4, 6, 6, 64, 440, 420, None, None, "bfloat16", "bfloat16"),
+    (64, 6, 6, 64, 440, 420, None, None, "bfloat16", "bfloat16"),
+    # edges: float32, float32 compute over a bf16 cache, D 32, a window,
+    # more than 16 query heads a KV head, kv_len 1, ragged tiles
+    (2, 8, 2, 32, 300, 250, 64, 30.0, "float32", "float32"),
+    (4, 8, 8, 64, 200, 150, None, None, "float32", "bfloat16"),
+    (1, 16, 4, 128, 3000, 2999, None, None, "float32", "float32"),
+    (2, 40, 2, 64, 300, 290, None, None, "bfloat16", "bfloat16"),
+    (2, 4, 2, 64, 128, 1, None, None, "bfloat16", "bfloat16"),
+    (3, 4, 4, 32, 77, 77, None, None, "bfloat16", "bfloat16"),
+    (1, 8, 8, 128, 2048, 2000, 700, None, "bfloat16", "bfloat16"),
+])
+def test_decode_attention_kernel_vs_plain(cuda_device, B, H, KV, D, T, kv_len,
+                                          window, softcap, dtype, cache):
+    gen = torch.Generator(device=cuda_device).manual_seed(B * T + H)
+    q = (2 * torch.randn(B, 1, H, D, generator=gen, device=cuda_device)
+         ).to(TDT[dtype])
+    ck, cv = (torch.randn(B, T, KV, D, generator=gen, device=cuda_device)
+              .to(TDT[cache]) for _ in range(2))
+    kw = dict(kv_len=kv_len, window=window, softcap_val=softcap)
+    lo, hi = dak.attended(kv_len, window)
+    split = dak.num_splits(B, KV, hi - lo) > 1
+    before, splits_before = dak.launches, dak.split_launches
+    got = dak.decode_attention(q, ck, cv, **kw)
+    torch.cuda.synchronize()
+    assert dak.launches == before + 1
+    assert dak.split_launches == splits_before + split
+    want = ref.decode_attention_ref(q, ck, cv, **kw)
+    assert got.dtype == q.dtype and torch.isfinite(got.float()).all()
+    assert _rel(got, want) < DECODE_REL[dtype]
+
+
+def test_decode_attention_takes_a_view_of_its_heads(cuda_device):
+    """A rank's KV heads under a mesh arrive as a slice of the cache."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    q = torch.randn(4, 1, 8, 64, generator=gen, device=cuda_device
+                    ).to(torch.bfloat16)
+    ck, cv = (torch.randn(4, 300, 8, 64, generator=gen, device=cuda_device)
+              .to(torch.bfloat16)[:, :, 2:6] for _ in range(2))
+    got = dak.decode_attention(q, ck, cv, kv_len=280)
+    want = ref.decode_attention_ref(q, ck, cv, kv_len=280)
+    assert _rel(got, want) < DECODE_REL["bfloat16"]
+
+
+def test_decode_attention_refuses_what_it_cannot_take(cuda_device):
+    q = torch.zeros(2, 1, 4, 48, device=cuda_device)
+    kv = torch.zeros(2, 16, 4, 48, device=cuda_device)
+    before = dak.launches
+    with pytest.raises(ValueError, match="head dim"):
+        dak.decode_attention(q, kv, kv, kv_len=16)
+    kv = torch.zeros(2, 4, 16, 64, device=cuda_device).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        dak.decode_attention(torch.zeros(2, 1, 4, 64, device=cuda_device),
+                             kv, kv, kv_len=16)
+    assert dak.launches == before
+
+
+@pytest.mark.parametrize("arch", ["jag-surrogate", "zamba2-1.2b"])
+@torch.inference_mode()
+def test_serve_decode_launches_decode_attention_per_layer(cuda_device, arch):
+    """A decode step launches the decode attention kernel once a
+    self-attention layer (zamba2: once an application of the shared block);
+    the plain run none; the first decode step's logits match the plain
+    run's from its own caches."""
+    cfg = registry.get_config(arch)
+    if cfg.n_repeat:
+        cfg = cfg.replace(n_repeat=2, n_layers=len(cfg.prologue)
+                          + 2 * len(cfg.superblock))
+    n_self = sum(s.kind in ("attn", "shared_attn") for s in cfg.plan)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = lm.init_params(cfg, gen, cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (4, 100), device=cuda_device,
+                         generator=gen)
+    eng = ServeEngine(cfg, params, max_len=128)
+    before = dak.launches
+    out = eng.generate(toks, 5)
+    assert out.shape == (4, 5)
+    assert dak.launches - before == 4 * n_self
+    logits = {}
+    for name, c in (("kernel", cfg), ("plain", cfg.replace(use_pallas="never"))):
+        e = ServeEngine(c, params, max_len=128)
+        lk, caches = e.prefill_fn(params, toks)
+        before = dak.launches
+        logits[name], _ = e.decode_fn(params, out[:, :1], caches)
+        assert dak.launches - before == (n_self if name == "kernel" else 0)
+    assert _rel(logits["kernel"], logits["plain"]) < 5e-2
 
 
 @torch.inference_mode()
