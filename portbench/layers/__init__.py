@@ -1,5 +1,10 @@
 """The layer kinds of the benchmark's models, one module each, found by
 the kind's name in a configuration's plan: ``portbench/layers/<kind>.py``.
+A plan's entry is ``<kind>``, a module that is the whole layer, or
+``<kind>+<mlp>``: the kind's module is then the layer's mixer with its
+residual, and ``portbench/mlps/<mlp>.py`` the MLP after it, over the
+layer's ``norm2`` (``mla+glu`` and ``mla+moe`` share a mixer and differ in
+their MLP).
 
 A kind's module holds all that the harness knows of it:
 
@@ -13,6 +18,14 @@ A kind's module holds all that the harness knows of it:
   mixer_flops(m, seq_len, train, kv_len)
                      attention's or a scan's FLOPs a token
   KERNEL             the port's hand-written kernel that runs it, or None
+  STATE              True where the reference carries a state from one
+                     chunk to the next (``Precision(carry=False)`` drops it)
+
+An MLP's module holds ``params(m)`` (under ``layers.<i>.mlp.``),
+``forward(p, pre, h, m, prec, moe, i)`` and ``products(m)``.  Several
+kinds may run one hand-written kernel, each at its own launch shape and
+with its own bounds: each declares a ``Kernel`` of the same name and the
+same device-kernel fragments.
 
 A model of a new kind is a new module here and a configuration file;
 nothing else names a kind.
@@ -23,7 +36,7 @@ import functools
 import importlib
 import pkgutil
 from dataclasses import dataclass
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -34,9 +47,10 @@ class Kernel:
     ``launches`` and ``bwd_launches`` the harness reads.  ``own``: the
     fragments of its device kernels' names; ``shared``: those of kernels
     another hand-written kernel also launches (counted with the one whose
-    own kernels ran).  ``launch_shape(m, rows, seq_len)``: the keywords of
-    ``fwd_bound`` and ``bwd_bound``, the least seconds of a forward launch
-    and a backward call (``work.bound_s``)."""
+    own kernels ran).  ``launch_shape(m, rows, seq_len, tp=1)``: the
+    keywords of ``fwd_bound`` and ``bwd_bound``, the least seconds of a
+    forward launch and a backward call (``work.bound_s``), for ``rows``
+    rows a launch with the heads split ``tp`` ways (tensor parallelism)."""
     name: str
     own: Tuple[str, ...]
     shared: Tuple[str, ...]
@@ -49,18 +63,47 @@ class Kernel:
         return f"repro_torch.kernels.{self.name}"
 
 
+def split(entry: str) -> Tuple[str, Optional[str]]:
+    """(kind, MLP or None) of a plan's entry."""
+    kind, _, mlp = entry.partition("+")
+    return kind, mlp or None
+
+
 def get(kind: str):
     """The module of a layer kind."""
     return importlib.import_module(f"{__name__}.{kind}")
 
 
+def mlp(name: str):
+    """The module of an MLP."""
+    return importlib.import_module(f"portbench.mlps.{name}")
+
+
+def parts(entry: str):
+    """The modules of a plan's entry: its kind's, then its MLP's."""
+    kind, name = split(entry)
+    return (get(kind),) if name is None else (get(kind), mlp(name))
+
+
+@functools.lru_cache(maxsize=None)
+def _kinds() -> Dict[str, Kernel]:
+    """{kind: its hand-written kernel} of every kind that has one."""
+    mods = {info.name: get(info.name) for info in pkgutil.iter_modules(__path__)}
+    return {kind: m.KERNEL for kind, m in mods.items() if m.KERNEL is not None}
+
+
 @functools.lru_cache(maxsize=None)
 def kernels() -> Tuple[Kernel, ...]:
-    """Every kind's hand-written kernel (the trace's reduction asks for
-    each device event)."""
-    mods = (get(info.name) for info in pkgutil.iter_modules(__path__))
-    return tuple(m.KERNEL for m in mods if m.KERNEL is not None)
+    """Every hand-written kernel, once (the trace's reduction asks for each
+    device event); the kinds that share one declare the same fragments."""
+    out: Dict[str, Kernel] = {}
+    for k in _kinds().values():
+        first = out.setdefault(k.name, k)
+        if (first.own, first.shared) != (k.own, k.shared):
+            raise ValueError(f"kinds declare {k.name} with other fragments")
+    return tuple(out.values())
 
 
-def kernel(name: str) -> Kernel:
-    return {k.name: k for k in kernels()}[name]
+def kernel_kinds(name: str) -> Dict[str, Kernel]:
+    """{kind: its declaration} of every kind that runs kernel ``name``."""
+    return {kind: k for kind, k in _kinds().items() if k.name == name}

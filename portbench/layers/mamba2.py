@@ -77,10 +77,12 @@ def ssd_bwd_bound(B, S, H, P, N):
     return work.bound_s(nbytes, work.scan_flops(B, S, H, P, N, backward=True))
 
 
-def launch_shape(m, rows, seq_len):
+def launch_shape(m, rows, seq_len, tp=1):
     d, di, N, P, H = _sizes(m)
-    return dict(B=rows, S=seq_len, H=H, P=P, N=N)
+    return dict(B=rows, S=seq_len, H=H // tp, P=P, N=N)
 
+
+STATE = True
 
 KERNEL = Kernel(
     name="ssd_scan",

@@ -85,10 +85,12 @@ def wkv_bwd_bound(B, S, H, D):
     return work.bound_s(nbytes, work.scan_flops(B, S, H, D, D, backward=True))
 
 
-def launch_shape(m, rows, seq_len):
-    return dict(B=rows, S=seq_len, H=m["d_model"] // m["head_dim"],
+def launch_shape(m, rows, seq_len, tp=1):
+    return dict(B=rows, S=seq_len, H=m["d_model"] // m["head_dim"] // tp,
                 D=m["head_dim"])
 
+
+STATE = True
 
 KERNEL = Kernel(
     name="wkv6_scan",

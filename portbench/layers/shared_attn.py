@@ -81,9 +81,9 @@ def flash_bwd_bound(B, S, H, KV, D, causal=True, window=None):
         nbytes, 10 * D * B * H * work.valid_pairs(S, S, causal, window, 0))
 
 
-def launch_shape(m, rows, seq_len):
-    return dict(B=rows, S=seq_len, H=m["n_heads"], KV=m["n_kv_heads"],
-                D=m["head_dim"])
+def launch_shape(m, rows, seq_len, tp=1):
+    return dict(B=rows, S=seq_len, H=m["n_heads"] // tp,
+                KV=m["n_kv_heads"] // tp, D=m["head_dim"])
 
 
 KERNEL = Kernel(name="flash_attention", own=("flash_fwd", "flash_bwd"),

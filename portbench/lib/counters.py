@@ -47,5 +47,7 @@ def peak_bytes(device) -> int:
 
 
 def release(device) -> None:
+    """Give the freed memory back, and count the peak anew."""
     if on_card(device):
         torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)

@@ -49,8 +49,10 @@ def _applies(metric: dict, cell: str) -> bool:
     return "workloads" not in metric or cell in metric["workloads"]
 
 
-def cell(name: str, root: Path = ROOT) -> Cell:
-    man = load(root)
+def cell(name: str, root: Path = ROOT, man: dict = None) -> Cell:
+    """The cell ``name`` of the manifest at ``root``, or of ``man`` (a
+    manifest's object, its files still under ``root``)."""
+    man = man or load(root)
     entries = {w["name"]: w for w in man["workloads"]}
     if name not in entries:
         raise KeyError(f"no workload {name!r}; the manifest has {sorted(entries)}")

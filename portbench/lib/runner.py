@@ -27,13 +27,26 @@ def device_info(device, chips: int, peak: int) -> dict:
             "memory_peak_bytes": peak}
 
 
+def quiet(tag: str, obj) -> None:
+    """The log of a rank other than 0: nothing."""
+
+
 def run_cell(name: str, seed: int, seconds: float, trace: bool, device,
-             t_start: float, root: Path = manifest.ROOT, cell=None) -> dict:
+             t_start: float, root: Path = manifest.ROOT, cell=None,
+             group=None) -> dict:
     """The result line's object.  ``cell`` (a ``manifest.Cell``) replaces
-    the manifest's, as the harness's tests do to run at a small size."""
+    the manifest's, as the harness's tests do to run at a small size.
+    ``group`` (``ranks.Group``): this process is one rank of a cell on
+    several cards; a rank other than 0 returns None."""
     c = cell or manifest.cell(name, root)
     kind = importlib.import_module(f"portbench.kinds.{c.traffic['kind']}")
-    out = kind.run(c, seed, seconds, trace, device, t_start, log)
+    if group is None:
+        out = kind.run(c, seed, seconds, trace, device, t_start, log)
+    else:
+        out = kind.run(c, seed, seconds, trace, device, t_start,
+                       log if group.rank == 0 else quiet, group=group)
+        if group.rank != 0:
+            return None
     metrics = {}
     if trace:
         for m in c.per_layer:

@@ -11,7 +11,8 @@ device is busy over the union of the events' intervals.
 
 Kernel groups are ``chip_smoke.py``'s (``_kernel_group``): the
 hand-written kernels (each layer kind's ``KERNEL``, its forward and
-backward together), matrix products (cuBLAS), copies and casts, the rest;
+backward together), matrix products (cuBLAS), collectives (NCCL's
+kernels, on several cards), copies and casts, the rest;
 except that copies and casts are the kernels with "copy" in their name
 (PyTorch runs every dtype cast as a copy: ``direct_copy_kernel_cuda``,
 ``bfloat16_copy_kernel_cuda``), since "cast" also names the templates of
@@ -32,16 +33,19 @@ from portbench import layers
 # kernel-name fragments: matrix products (cuBLAS / cuBLASLt), copies (and
 # with them dtype casts)
 GEMM = ("gemm", "nvjet", "xmma", "cutlass")
+COLLECTIVE = "nccl"
 COPY = "copy"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def kernel_group(name: str) -> str:
-    """``hand_written``, ``gemm``, ``copy_cast`` or ``other``."""
+    """``hand_written``, ``gemm``, ``collective``, ``copy_cast`` or
+    ``other``."""
     low = name.lower()
     if _has(low, _hand_written()):
         return "hand_written"
     return ("gemm" if _has(low, GEMM) else
+            "collective" if COLLECTIVE in low else
             "copy_cast" if COPY in low else "other")
 
 

@@ -8,7 +8,9 @@ each leaf is made from its slice by the first rule of the configuration's
 ``[pattern, kind, a, b, then]``:
 
   normal       a z + b
-  fan_in       a z / sqrt(rows) + b: x @ W keeps x's size
+  fan_in       a z / sqrt(rows) + b: x @ W keeps x's size (rows: the
+               second axis from the end, the input axis of a stack of
+               matrices such as a MoE layer's experts)
   uniform      uniform on [a, b] (z through the normal CDF)
   log_uniform  exp of uniform on [log a, log b]
   ramp         a to b along the last axis, evenly (z unused)
@@ -53,7 +55,7 @@ def _leaf(z: torch.Tensor, name: str, rules) -> torch.Tensor:
     if kind == "normal":
         z.mul_(a).add_(b)
     elif kind == "fan_in":
-        z.mul_(a / math.sqrt(z.shape[0])).add_(b)
+        z.mul_(a / math.sqrt(z.shape[-2] if z.dim() > 1 else z.shape[0])).add_(b)
     elif kind in ("uniform", "log_uniform"):
         u = z.div_(math.sqrt(2.0)).erf_().add_(1.0).mul_(0.5)
         if kind == "uniform":
@@ -100,11 +102,13 @@ def draw(shapes: Dict[str, tuple], rules, seed: int, device
         del flat, out
 
 
-def draw_all(shapes, rules, seed, device) -> Dict[str, torch.Tensor]:
-    """Every parameter, each a tensor of its own."""
+def draw_all(shapes, rules, seed, device, part=None) -> Dict[str, torch.Tensor]:
+    """Every parameter, each a tensor of its own; ``part(name, tensor)``,
+    where given, keeps only the part of a leaf it returns."""
     out = {}
     for _, leaves in draw(shapes, rules, seed, device):
-        out.update({k: v.clone() for k, v in leaves.items()})
+        out.update({k: (v if part is None else part(k, v)).clone()
+                    for k, v in leaves.items()})
     return out
 
 

@@ -8,19 +8,25 @@ it is counted whole and none is cut.
 from __future__ import annotations
 
 import time
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 
 def run(step: Callable[[], None], seconds: float,
-        clock: Callable[[], float] = time.monotonic
+        clock: Callable[[], float] = time.monotonic,
+        agree: Optional[Callable[[bool], bool]] = None
         ) -> Tuple[int, float, List[float]]:
-    """(steps, window seconds, each step's end in seconds from the start)."""
+    """(steps, window seconds, each step's end in seconds from the start).
+    ``agree``: where several processes step together, the decision to
+    step again made by one of them (``ranks.Group.agree``)."""
     t0 = clock()
     ends: List[float] = []
     while True:
         step()
         ends.append(clock() - t0)
-        if ends[-1] >= seconds:
+        more = ends[-1] < seconds
+        if agree is not None:
+            more = agree(more)
+        if not more:
             return len(ends), ends[-1], ends
 
 

@@ -60,17 +60,22 @@ def tiles(S, tile):
 # model FLOPs of a token, and a kernel's share of its roofline
 # ---------------------------------------------------------------------------
 
-def _per_layer(m, fn) -> float:
+def _per_layer(m, fn, mlps=False) -> float:
+    """``fn`` of each layer's kind module summed over the plan; with
+    ``mlps``, of its MLP's module too."""
     from portbench import layers
-    kinds = list(m.get("prologue", [])) + list(m["superblock"]) * m["n_repeat"]
-    return float(sum(fn(layers.get(k)) for k in kinds))
+    entries = list(m.get("prologue", [])) + list(m["superblock"]) * m["n_repeat"]
+    return float(sum(fn(mod) for e in entries for mod in (
+        layers.parts(e) if mlps else layers.parts(e)[:1])))
 
 
 def _products(m) -> float:
     """Weights a token multiplies by, counted as often as they are applied
     (a shared block at each application; the tied embedding as the output
-    head; the depthwise conv's taps)."""
-    return m["d_model"] * m["vocab_size"] + _per_layer(m, lambda k: k.products(m))
+    head; the depthwise conv's taps; a MoE layer's router, the experts a
+    token is routed to and the shared ones)."""
+    return m["d_model"] * m["vocab_size"] + _per_layer(
+        m, lambda k: k.products(m), mlps=True)
 
 
 def train_flops_per_token(m: dict, seq_len: int) -> float:
@@ -87,17 +92,31 @@ def decode_flops_per_token(m: dict, kv_len: int) -> float:
         m, lambda k: k.mixer_flops(m, 1, False, kv_len))
 
 
-def roofline(ctx, name: str) -> Optional[float]:
+def roofline(ctx, name: str, kinds=None) -> Optional[float]:
     """A hand-written kernel's share (%) of its roofline over a traced
     window: the bound of every forward launch (a remat recompute counting
     again) and backward call, by the program's counters, at the step's
     launch shape, over the device time of the kernel's forward and
-    backward in the trace.  None where it did not run."""
+    backward in the trace.  Where several layer kinds run it
+    (``ctx.shapes[name]``: {kind: launch shape}), each kind's share of the
+    launches (``ctx.shares[name][kind]``: of the forward launches and of
+    the backward calls, from the plan) counts at its own shape and bound.
+    ``kinds``: None unless every kind that ran it is among them (the
+    trace cannot split a kernel's time by kind).  None where it did not
+    run."""
     from portbench import layers
-    k = layers.kernel(name)
-    shape = ctx.shapes.get(name)
+    shapes = ctx.shapes.get(name)
     n_f, n_b = ctx.counters.get(name, 0), ctx.counters.get(name + "_bwd", 0)
     t = ctx.trace.kernel_seconds(name)
-    if shape is None or not (n_f or n_b) or t <= 0:
+    if not shapes or not (n_f or n_b) or t <= 0:
         return None
-    return 100.0 * (n_f * k.fwd_bound(**shape) + n_b * k.bwd_bound(**shape)) / t
+    if kinds is not None and set(shapes) - set(kinds):
+        return None
+    decl = layers.kernel_kinds(name)
+    shares = getattr(ctx, "shares", {}).get(name, {})
+    least = 0.0
+    for kind, shape in shapes.items():
+        f, b = shares.get(kind, (1.0, 1.0))
+        k = decl[kind]
+        least += n_f * f * k.fwd_bound(**shape) + n_b * b * k.bwd_bound(**shape)
+    return 100.0 * least / t

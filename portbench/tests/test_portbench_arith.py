@@ -6,6 +6,7 @@ import pytest
 
 from portbench import layers
 from portbench.lib import manifest, trace, work
+from portbench.tests import tiny
 
 mamba2, rwkv6, shared_attn = (layers.get(k) for k in ("mamba2", "rwkv6",
                                                        "shared_attn"))
@@ -70,18 +71,21 @@ def test_zamba2_model_flops_a_token():
 
 
 def test_every_kind_in_a_plan_has_its_module_and_kernels_differ():
-    kinds = set()
-    for w in manifest.load()["workloads"]:
-        m = manifest.cell(w["name"]).config["model"]
-        kinds |= set(m.get("prologue", [])) | set(m["superblock"])
-    for kind in kinds:
-        mod = layers.get(kind)
-        assert callable(mod.forward) and callable(mod.products)
+    entries = set()
+    for w in tiny.with_staged()["workloads"]:
+        m = tiny.full(w["name"]).config["model"]
+        entries |= set(m.get("prologue", [])) | set(m["superblock"])
+    for entry in entries:
+        for mod in layers.parts(entry):
+            assert callable(mod.forward) and callable(mod.products)
     ks = layers.kernels()
     assert sorted(k.name for k in ks) == ["flash_attention", "ssd_scan",
                                           "wkv6_scan"]
     own = [f for k in ks for f in k.own]
     assert len(own) == len(set(own))  # a fragment is one kernel's own
+    # kinds that share a kernel declare it each at its own shape and bound
+    assert sorted(layers.kernel_kinds("flash_attention")) == ["mla",
+                                                              "shared_attn"]
 
 
 def _trace(events, window_s=1.0, steps=1):
@@ -139,7 +143,7 @@ def test_roofline_readers():
     spent_us = 1e6 * (63 * f + 33 * b) * 4  # a quarter of the roofline
     ctx = _ctx("train", [("void ssd_tc_kernel<64, 64>", 0, spent_us)],
                counters={"ssd_scan": 63, "ssd_scan_bwd": 33},
-               shapes={"ssd_scan": shape})
+               shapes={"ssd_scan": {"mamba2": shape}})
     assert manifest.reader("ssd_scan_roofline.train")(ctx) == pytest.approx(25.0)
     assert manifest.reader("wkv6_scan_roofline.train")(ctx) is None
     assert manifest.reader("flash_attention_roofline.train")(ctx) is None

@@ -25,10 +25,11 @@ ref_only = sorted({m.split(".")[0] for m in sys.modules})
 import time
 from portbench.lib import manifest, runner
 from portbench.tests import tiny
-for w in manifest.load()["workloads"]:
+man = tiny.with_staged()  # the staged cells too
+for w in man["workloads"]:
     runner.run_cell(w["name"], 5, 0.1, False, "cpu", time.monotonic(),
                     cell=tiny.cell(w["name"]))
-for m in manifest.load()["per_layer"]:
+for m in man["per_layer"]:
     manifest.reader(m["name"])
 print(json.dumps({"ref_only": ref_only,
                   "modules": sorted({m.split(".")[0] for m in sys.modules}),

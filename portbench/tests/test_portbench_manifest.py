@@ -1,11 +1,14 @@
 """BENCHMARK.json against the benchmark's contract: names, units, keys,
-bounds, what each cell reports, and the files each entry needs."""
+bounds, what each cell reports, and the files each entry needs; and the
+same of the manifest with the staged cells' entries added
+(``tiny.with_staged``)."""
 import json
 import re
 
 import pytest
 
 from portbench.lib import manifest
+from portbench.tests import tiny
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -18,9 +21,10 @@ WIDTHS = re.compile(r"(hidden_size|intermediate_size|_dim$|_rank$|head_size|"
                     r"experts_per_tok|top_k)")
 
 
-@pytest.fixture(scope="module")
-def man():
-    return manifest.load()
+@pytest.fixture(scope="module", params=["committed", "staged"])
+def man(request):
+    return manifest.load() if request.param == "committed" else \
+        tiny.with_staged()
 
 
 def test_top_level_keys_and_command(man):
@@ -90,7 +94,7 @@ def test_workloads(man):
     for w in man["workloads"]:
         assert w["chips"] in (1, 4)
         assert NAME.match(w["traffic"]) and NAME.match(w["config"])
-        manifest.cell(w["name"])  # its config, traffic and limits load
+        manifest.cell(w["name"], man=man)  # its config, traffic and limits load
 
 
 def test_end_to_end_bounds(man):
@@ -104,7 +108,7 @@ def test_end_to_end_bounds(man):
 def test_every_cell_reports_enough(man):
     e2e = {m["name"]: m for m in man["end_to_end"]}
     for w in man["workloads"]:
-        c = manifest.cell(w["name"])
+        c = manifest.cell(w["name"], man=man)
         reported = {m["name"] for m in c.end_to_end}
         assert "setup_s" in reported and len(reported) >= 2
         assert c.per_layer
